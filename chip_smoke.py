@@ -4,18 +4,39 @@
 Phases, one line each; any failure raises and exits non-zero:
   1. device   — a CUDA card is required; prints nvidia-smi's name and
                 power limit;
-  2. build    — nvcc builds the kernels from tpq_torch/csrc;
-  3. kernels  — PAD, PACK and the fused walk/emit, on the very arguments
-                a config-1 lane join hands them, byte-equal to their
-                plain torch versions, each timed beside its plain version;
-  4. config1  — the 1M x 1M uniform join through the bench runner
-                (hash_join(impl="lane")): the lane path taken, every
-                kernel launched, num_rows equal to numpy's count and the
-                rows byte-equal to the C++ oracle's; end-to-end ms, rows/s
-                and the per-phase breakdown;
-  5. fallback — an h2-colliding key pair clears `ok` and the lane join
-                equals the sorted one.
-The line before the last is the kernels' JSON record; the last line is
+  2. build    — nvcc builds the kernels from tpq_torch/csrc, one process
+                per source, all started together;
+  3. kernels  — every kernel on the very arguments its paths hand it,
+                byte-equal to its plain torch version and timed beside
+                it and, where one exists, beside the one PyTorch call
+                that computes the same function: PAD, PACK and the fused
+                walk/emit at config 1; the walk-only probe at config 3's
+                membership and at config 1's tables (one payload); the
+                fused walk/emit at config 3's heavy mini table; the
+                1-bit split at one config-1 radix pass and
+                lsd_radix_sort_bits over all 66 passes;
+  4. config1  — the 1M x 1M uniform join, hash_join(impl="lane"): one
+                join with every launch count zeroed just before it and
+                read just after (PAD, PACK and the fused walk/emit
+                launched, nothing else), num_rows equal to numpy's count
+                and the rows byte-equal to the C++ oracle; then the bench
+                runner: the lane path taken, end-to-end ms, rows/s and
+                the per-phase breakdown;
+  5. config3  — the 1M x 1M zipf-probe join, hash_join(impl="skew"), the
+                same way: PAD, PACK, the fused walk/emit and the probe
+                kernel launched, rows byte-equal to the oracle, the split
+                path taken (`join_hash_skew`); heavy keys and their share
+                of the probe rows;
+  6. merge    — merge_join(sort_engine="radix") at config 1, the same
+                way: 66 split launches in the join and no other kernel,
+                rows byte-equal to the oracle's merge join; end-to-end ms
+                beside the lax engine;
+  7. fallback — an h2-colliding key pair clears the lane join's `ok`, and
+                all-equal keys the skew join's; each equals the sorted
+                join.
+The line before the last is the kernels' JSON record: `launches` is the
+sum over the three paths of the launches in their one counted join, and
+`launches_per_join` gives them path by path. The last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -33,6 +54,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ORACLE_DIR = os.path.join(ROOT, "oracle", "build")
+# the least time of a kernel: its bytes over the H100 SXM's published
+# 3.35 TB/s, or its 64-bit compares over the 67 T/s float32 rate outside
+# the tensor cores (the table has no integer rate; a higher rate only
+# lowers the bound). Each kernel line also prints the byte bound at the
+# copy rate measured in this run.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 
 def check(cond, msg):
@@ -56,17 +84,24 @@ def max_abs_err(pairs) -> int:
 
 
 def record_kernel_calls(run):
-    """Runs `run()` with the kernel wrappers on the lane path replaced by
-    recorders; returns {wrapper name: [args, ...]} of what it received."""
-    from tpq_torch.kernels import lane2, lane_table
+    """Runs `run()` with the kernel wrappers of the ported paths replaced
+    by recorders; returns {wrapper name: [args, ...]} of what they
+    received (lsd_radix_sort_bits is recorded too, for its whole-sort
+    check)."""
+    from tpq_torch.kernels import lane2, lane_table, radix_sort
+    from tpq_torch.ops import filter as filter_op
+    from tpq_torch.ops import skew_join
 
     calls = {}
-    patched = [(lane_table, "pad"), (lane_table, "pack"), (lane2, "fused_walk_emit")]
+    patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
+               (filter_op, "pack"), (lane2, "fused_walk_emit"),
+               (lane_table, "probe_walk"), (radix_sort, "_split1"),
+               (radix_sort, "lsd_radix_sort_bits")]
     saved = [getattr(m, n) for m, n in patched]
 
     def recorder(name, fn):
         # wraps copies `launches`: while patched, a wrapper's body counts
-        # through its module-global name, which is now this recorder
+        # through its module-global name, which may be this recorder
         @functools.wraps(fn)
         def rec(*args):
             calls.setdefault(name, []).append(args)
@@ -83,86 +118,241 @@ def record_kernel_calls(run):
     return calls
 
 
-def kernel_phase(dev, cfg, iters=20):
-    from tpq_torch.bench.runner import cuda_time, gen, out_capacity_for
-    from tpq_torch.kernels.lane2 import (fused_walk_emit, fused_walk_emit_ref,
-                                         lane2_hash_join)
-    from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
+def bound(nbytes: int, ops: int = 0):
+    """(bound ms, "bytes" or "operations")."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
-    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
-    out_cap = out_capacity_for(cfg)
-    calls = record_kernel_calls(lambda: lane2_hash_join(r, s, out_cap))
-    for _ in range(3):  # clocks and the caching allocator settle first
-        lane2_hash_join(r, s, out_cap)
-    check(set(calls) == {"pad", "pack", "fused_walk_emit"},
-          f"config 1 reached kernels {sorted(calls)}")
-    check(len(calls["pad"]) == 3, "expected build, probe and tail-window PAD calls")
 
-    def ms(fn, n):
-        return cuda_time(fn, dev, n)[0] * 1e3
+def walk_work(tables, lane, qocc):
+    """The key compares a walk over these queries does: the bucket
+    length of each live query."""
+    plan = tables.plan
+    p = torch.arange(lane.shape[0], device=lane.device) // plan.probe_cap
+    blen = tables.blen[p, lane.long()]
+    return int(torch.where(qocc > 0, blen, 0).sum())
 
-    def paired(kernel, plain, n_plain):
+
+class Kernels:
+    """Collects each kernel's record for the JSON line."""
+
+    def __init__(self, dev, hbm_bw, iters=20):
+        from tpq_torch.bench.runner import cuda_time
+
+        self.dev, self.hbm_bw, self.iters, self.cuda_time = dev, hbm_bw, iters, cuda_time
+        self.rec = {}
+
+    def ms(self, fn, n):
+        return self.cuda_time(fn, self.dev, n)[0] * 1e3
+
+    def paired(self, kernel, plain, n_plain):
         """(kernel ms, plain ms), each the mean of two timings taken in
         turns: plain, kernel, kernel, plain."""
-        p1, k1, k2, p2 = (ms(plain, n_plain), ms(kernel, iters),
-                          ms(kernel, iters), ms(plain, n_plain))
+        p1, k1, k2, p2 = (self.ms(plain, n_plain), self.ms(kernel, self.iters),
+                          self.ms(kernel, self.iters), self.ms(plain, n_plain))
         return (k1 + k2) / 2, (p1 + p2) / 2
 
-    records = {}
-    pad_errs = []
+    def hold(self, name, label, kernel, plain, n_plain, err, nbytes, ops=0,
+             library=None, record=True):
+        check(err == 0, f"{name} ({label}) differs from its plain version")
+        t_k, t_p = self.paired(kernel, plain, n_plain)
+        t_l = self.ms(library, self.iters) if library is not None else None
+        t_b, by = bound(nbytes, ops)
+        lib = f"{t_l:.4f} ms" if t_l is not None else "none"
+        t_m = nbytes / (self.hbm_bw * 1e9) * 1e3
+        phase("kernels", f"{name} ({label}): max_abs_err {err}; kernel {t_k:.4f} ms, "
+                         f"plain {t_p:.4f} ms, library {lib}, bound {t_b:.4f} ms "
+                         f"({by}: {nbytes} B, {ops} ops; bytes at the measured "
+                         f"{self.hbm_bw:.1f} GB/s {t_m:.4f} ms)")
+        if record:
+            self.rec[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                              "bound_ms": t_b, "bound_by": by, "library_ms": t_l}
+
+
+def pad_phase(K, calls):
+    from tpq_torch.kernels.move import pad, pad_ref
+
     for label, args in zip(("build", "probe", "tail window"), calls["pad"]):
         cols, dest, n_live, out_len = args
         got, want = pad(*args), pad_ref(*args)
         err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
-        pad_errs.append(err)
-        t_k, t_p = paired(lambda: pad(*args), lambda: pad_ref(*args), 5)
-        phase("kernels", f"pad ({label}): {len(cols)} cols x {dest.shape[0]} rows "
-                         f"-> {out_len}; max_abs_err {err}; kernel {t_k:.4f} ms, "
-                         f"plain {t_p:.4f} ms")
-        if label == "build":
-            records["pad"] = (t_k, t_p)
-    check(max(pad_errs) == 0, "PAD differs from its plain version")
+        n = dest.shape[0]
+        live = ((torch.arange(n, device=dest.device) < n_live)
+                & (dest >= 0) & (dest < out_len))
+        idx = dest[live].long()
+        vals = [c[live] for c in cols]
+        esz = sum(c.element_size() for c in cols)
+        moved = int(live.sum())
 
-    (args,) = calls["pack"]
+        def library(idx=idx, vals=vals, out_len=out_len):
+            outs = [torch.zeros(out_len, dtype=v.dtype,
+                                device=v.device).index_copy_(0, idx, v) for v in vals]
+            return outs, torch.zeros(out_len, dtype=torch.int32,
+                                     device=idx.device).index_fill_(0, idx, 1)
+
+        nbytes = int(n_live) * 4 + moved * esz + out_len * (esz + 4)
+        K.hold("pad", f"{label}: {len(cols)} cols x {n} rows -> {out_len}",
+               lambda a=args: pad(*a), lambda a=args: pad_ref(*a), 5, err, nbytes,
+               library=library, record=label == "build")
+
+
+def pack_phase(K, args, label, record):
+    from tpq_torch.kernels.move import pack, pack_ref
+
+    cols, occ = args
     got, want = pack(*args), pack_ref(*args)
-    pack_err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
-    t_k, t_p = paired(lambda: pack(*args), lambda: pack_ref(*args), 5)
-    records["pack"] = (t_k, t_p)
-    phase("kernels", f"pack (tail): {len(args[0])} col x {args[1].shape[0]} rows, "
-                     f"total {int(got[1])}; max_abs_err {pack_err}; kernel "
-                     f"{t_k:.4f} ms, plain {t_p:.4f} ms")
-    check(pack_err == 0, "PACK differs from its plain version")
+    err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+    keep = occ != 0
+    esz = sum(c.element_size() for c in cols)
+    n, total = occ.shape[0], int(got[1])
+    K.hold("pack", f"{label}: {len(cols)} col x {n} rows, total {total}",
+           lambda: pack(*args), lambda: pack_ref(*args), 5, err,
+           n * 4 + total * esz + n * esz + 4,
+           library=lambda: [c[keep] for c in cols], record=record)
 
-    (args,) = calls["fused_walk_emit"]
+
+def fused_phase(K, args, label, record):
+    from tpq_torch.kernels.lane2 import fused_walk_emit, fused_walk_emit_ref
+
     tables, qk, lane, qocc, spays, cap = args
+    plan = tables.plan
     (outs, cnt, d_first), (routs, rcnt, rdf) = (fused_walk_emit(*args),
                                                  fused_walk_emit_ref(*args))
-    n = min(int(cnt.clamp_max(tables.plan.inline_k).sum()), cap)
-    walk_err = max_abs_err([(cnt, rcnt), (d_first, rdf)]
-                           + [(a[:n], b[:n]) for a, b in zip(outs, routs)])
-    t_k, t_p = paired(lambda: fused_walk_emit(*args),
-                      lambda: fused_walk_emit_ref(*args), 3)
-    records["fused_walk_emit"] = (t_k, t_p)
-    phase("kernels", f"fused_walk_emit: u={qk.shape[0]} queries, {n} inline rows "
-                     f"of {cap}; max_abs_err {walk_err}; kernel {t_k:.4f} ms, "
-                     f"plain {t_p:.4f} ms")
-    check(walk_err == 0, "fused walk/emit differs from its plain version")
-    return records, {"pad": max(pad_errs), "pack": pack_err,
-                     "fused_walk_emit": walk_err}
+    n = min(int(cnt.clamp_max(plan.inline_k).sum()), cap)
+    err = max_abs_err([(cnt, rcnt), (d_first, rdf)]
+                      + [(a[:n], b[:n]) for a, b in zip(outs, routs)])
+    u = qk.shape[0]
+    nr, ns = len(tables.pays), len(spays)
+    matched = int(((cnt > 0) & (qocc > 0)).sum())
+    nbytes = (u * 16 + tables.key.numel() * 8 + tables.blen.numel() * 4
+              + n * 8 * nr + matched * 8 * ns + u * 8 + n * 8 * (1 + nr + ns))
+    K.hold("fused_walk_emit",
+           f"{label}: npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
+           f"u={u}, {n} inline rows of {cap}",
+           lambda: fused_walk_emit(*args), lambda: fused_walk_emit_ref(*args), 3,
+           err, nbytes, walk_work(tables, lane, qocc), record=record)
 
 
-def oracle_rows(r_np, s_np):
+def probe_phase(K, args, label, record):
+    from tpq_torch.kernels.lane_table import probe_walk, probe_walk_ref
+
+    tables, qk, lane, qocc = args
+    plan = tables.plan
+    (cnt, df, pays), (rcnt, rdf, rpays) = probe_walk(*args), probe_walk_ref(*args)
+    err = max_abs_err([(cnt, rcnt), (df, rdf)]
+                      + [(a, b) for row, rrow in zip(pays, rpays)
+                         for a, b in zip(row, rrow)])
+    u, npay = qk.shape[0], len(tables.pays)
+    emitted = int(torch.where(qocc > 0, cnt.clamp_max(plan.inline_k), 0).sum())
+    nbytes = (u * 16 + tables.key.numel() * 8 + tables.blen.numel() * 4
+              + emitted * 8 * npay + u * 8 + plan.inline_k * npay * u * 8)
+    K.hold("probe_walk",
+           f"{label}: npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
+           f"{npay} payload cols, u={u}, {int((cnt > 0).sum())} queries matched",
+           lambda: probe_walk(*args), lambda: probe_walk_ref(*args), 3, err,
+           nbytes, walk_work(tables, lane, qocc), record=record)
+
+
+def split_phase(K, calls):
+    from tpq_torch.kernels import radix_sort
+
+    split_calls = calls["_split1"]
+    check(len(split_calls) == 66, f"{len(split_calls)} radix passes, expected 66")
+    args = split_calls[1]  # key bit 0
+    planes, bit = args
+    got, want = radix_sort._split1(*args), radix_sort.split1_ref(*args)
+    err = max_abs_err(list(zip(got, want)))
+    n, np_ = bit.shape[0], len(planes)
+
+    def library():
+        perm = torch.sort(bit, stable=True).indices
+        return [p.index_select(0, perm) for p in planes]
+
+    K.hold("split1", f"pass 2 of 66: {np_} int32 planes x {n} rows, "
+                     f"n0 {int((bit == 0).sum())}",
+           lambda: radix_sort._split1(*args), lambda: radix_sort.split1_ref(*args),
+           5, err, n * 4 + 2 * np_ * n * 4 + 4, library=library)
+
+    # the whole sort: every pass on the kernel, then every pass on the
+    # plain version (the module global swapped for the plain split)
+    (sort_args,) = calls["lsd_radix_sort_bits"]
+
+    def plain_sort():
+        saved = radix_sort._split1
+        radix_sort._split1 = radix_sort.split1_ref
+        try:
+            return radix_sort.lsd_radix_sort_bits(*sort_args)
+        finally:
+            radix_sort._split1 = saved
+
+    got = radix_sort.lsd_radix_sort_bits(*sort_args)
+    err = max_abs_err(list(zip(got, plain_sort())))
+    K.hold("split1", f"lsd_radix_sort_bits, all 66 passes over {np_} planes",
+           lambda: radix_sort.lsd_radix_sort_bits(*sort_args), plain_sort, 2, err,
+           66 * (n * 4 + 2 * np_ * n * 4 + 4), record=False)
+
+
+def kernel_phase(dev, cfg1, cfg3, hbm_bw):
+    from tpq_torch.bench.runner import gen, out_capacity_for
+    from tpq_torch.kernels.lane2 import build_lane2_tables, lane2_hash_join, plan_lane2
+    from tpq_torch.kernels.lane_table import probe_lane_tables
+    from tpq_torch.ops import merge_join
+    from tpq_torch.ops.skew_join import skew_hash_join
+
+    K = Kernels(dev, hbm_bw)
+    r1, s1 = gen(cfg1.r, dev), gen(cfg1.s, dev)
+    cap1 = out_capacity_for(cfg1)
+    calls = record_kernel_calls(lambda: lane2_hash_join(r1, s1, cap1))
+    for _ in range(3):  # clocks and the caching allocator settle first
+        lane2_hash_join(r1, s1, cap1)
+    check(set(calls) == {"pad", "pack", "fused_walk_emit"},
+          f"config 1 reached kernels {sorted(calls)}")
+    check(len(calls["pad"]) == 3, "expected build, probe and tail-window PAD calls")
+    pad_phase(K, calls)
+    (args,) = calls["pack"]
+    pack_phase(K, args, "config-1 tail", record=True)
+    (args,) = calls["fused_walk_emit"]
+    fused_phase(K, args, "config 1", record=True)
+
+    # the walk-only probe with a payload column: config 1's tables (D 48,
+    # K 4) probed by config 1's S
+    tables = build_lane2_tables(
+        r1, plan_lane2(r1.capacity, s1.capacity, out_capacity=cap1))
+    calls = record_kernel_calls(lambda: probe_lane_tables(tables, s1))
+    (args,) = calls["probe_walk"]
+    probe_phase(K, args, "config-1 tables, config-1 S", record=False)
+
+    r3, s3 = gen(cfg3.r, dev), gen(cfg3.s, dev)
+    cap3 = out_capacity_for(cfg3)
+    calls = record_kernel_calls(lambda: skew_hash_join(r3, s3, cap3))
+    check({"pad", "pack", "fused_walk_emit", "probe_walk"} <= set(calls),
+          f"config 3 reached kernels {sorted(calls)}")
+    check(len(calls["probe_walk"]) == 2, "expected the R and S membership probes")
+    probe_phase(K, calls["probe_walk"][0], "config-3 membership of R", record=True)
+    heavy = [a for a in calls["fused_walk_emit"] if a[0].plan.npart == 1]
+    check(len(heavy) == 1, "expected one heavy-path fused walk/emit")
+    fused_phase(K, heavy[0], "config-3 heavy mini table", record=False)
+    pack_phase(K, calls["pack"][0], "config-3 nomination", record=False)
+
+    calls = record_kernel_calls(
+        lambda: merge_join(r1, s1, cap1, sort_engine="radix"))
+    split_phase(K, calls)
+    return K.rec
+
+
+def oracle_rows(r_np, s_np, algo="hash"):
     """The C++ oracle's canonical join of the two relations."""
     from tpq_torch import colio
 
     os.makedirs(ORACLE_DIR, exist_ok=True)
     exe = os.path.join(ORACLE_DIR, "oracle_smoke")
-    subprocess.run(["g++", "-std=c++17", "-O2", "-o", exe,
-                    os.path.join(ROOT, "oracle", "main.cc")], check=True)
+    if not os.path.exists(exe):
+        subprocess.run(["g++", "-std=c++17", "-O2", "-o", exe,
+                        os.path.join(ROOT, "oracle", "main.cc")], check=True)
     paths = [os.path.join(ORACLE_DIR, f"smoke_{x}.tpqc") for x in ("r", "s", "out")]
     colio.dump(paths[0], r_np)
     colio.dump(paths[1], s_np)
-    subprocess.run([exe, "join", "--algo=hash", f"--left={paths[0]}",
+    subprocess.run([exe, "join", f"--algo={algo}", f"--left={paths[0]}",
                     f"--right={paths[1]}", f"--out={paths[2]}"], check=True)
     out = colio.load(paths[2])
     for p in paths:
@@ -170,41 +360,112 @@ def oracle_rows(r_np, s_np):
     return out
 
 
-def config1_phase(dev, cfg):
+def relations_np(cfg):
     from tpq_torch import datagen
-    from tpq_torch.bench.runner import phase_report, run_config
-    from tpq_torch.columnar import canonicalize, tables_equal
+
+    return [datagen.gen_relation_np(x.rows, x.nkeys, x.payloads, x.seed, x.kind,
+                                    x.theta) for x in (cfg.r, cfg.s)]
+
+
+def true_rows(cfg, r_np, s_np) -> int:
+    return int((np.bincount(r_np["key"], minlength=cfg.r.nkeys).astype(np.int64)
+                * np.bincount(s_np["key"], minlength=cfg.r.nkeys)).sum())
+
+
+def wrappers():
+    """The kernel wrappers of the ported paths, by their JSON names."""
     from tpq_torch.kernels.lane2 import fused_walk_emit
+    from tpq_torch.kernels.lane_table import probe_walk
     from tpq_torch.kernels.move import pack, pad
+    from tpq_torch.kernels.radix_sort import _split1
 
-    wrappers = {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit}
-    for w in wrappers.values():
+    return {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit,
+            "probe_walk": probe_walk, "split1": _split1}
+
+
+def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
+    """One preset's join through its entry point, with every launch count
+    zeroed just before it and read just after: the kernels in `expect`
+    must have launched and no other. Its rows against numpy's count and
+    the C++ oracle; then the bench runner's timed run and op label."""
+    from tpq_torch.bench.runner import gen, join_fn, out_capacity_for, run_config
+    from tpq_torch.columnar import canonicalize, tables_equal
+
+    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+    join = join_fn(cfg, r, s, out_capacity_for(cfg))
+    ws = wrappers()
+    for w in ws.values():
         w.launches = 0
-    report = run_config(cfg, device=dev)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    op = report["ops"][0]
-    phase("config1", f"{op['op']}: launches {launches}")
-    check(op["op"] == "join_hash_lane", f"lane path not taken: {op['op']}")
-    check(all(v > 0 for v in launches.values()), f"a kernel never ran: {launches}")
+    out = join()
+    launches = {k: w.launches for k, w in ws.items()}
+    phase(name, f"one join: launches {launches}")
+    check(all((v > 0) == (k in expect) for k, v in launches.items()),
+          f"expected launches of exactly {sorted(expect)}: {launches}")
 
-    r_np = datagen.gen_relation_np(cfg.r.rows, cfg.r.nkeys, cfg.r.payloads, cfg.r.seed)
-    s_np = datagen.gen_relation_np(cfg.s.rows, cfg.s.nkeys, cfg.s.payloads, cfg.s.seed)
-    true_rows = int((np.bincount(r_np["key"], minlength=cfg.r.nkeys).astype(np.int64)
-                     * np.bincount(s_np["key"], minlength=cfg.r.nkeys)).sum())
-    out = report["output"]
-    check(report["out_rows"] == true_rows,
-          f"num_rows {report['out_rows']} != numpy's {true_rows}")
-    check(tables_equal(canonicalize(out), oracle_rows(r_np, s_np)),
+    r_np, s_np = relations_np(cfg)
+    n = true_rows(cfg, r_np, s_np)
+    check(int(out.num_rows) == n, f"num_rows {int(out.num_rows)} != numpy's {n}")
+    check(tables_equal(canonicalize(out), oracle_rows(r_np, s_np, oracle_algo)),
           "output differs from the C++ oracle")
-    phase("config1", f"num_rows {true_rows} == numpy count; canonical rows "
-                     f"byte-equal to the C++ oracle")
-    phase("config1", f"end_to_end {op['elapsed_ms']:.4f} ms, "
-                     f"{op['rows_per_sec']:.6e} probe rows/s, measured HBM "
-                     f"{report['hbm_bw_gbps']:.1f} GB/s, roofline "
-                     f"{op['roofline_pct']:.2f}% (byte model {op['model_bytes']} B)")
+    phase(name, f"num_rows {n} == numpy count; canonical rows byte-equal to the "
+                f"C++ oracle's {oracle_algo} join")
+
+    report = run_config(cfg, hbm_bw=hbm_bw, device=dev)
+    op = report["ops"][0]
+    check(op["op"] == want_op, f"{want_op} not taken: {op['op']}")
+    phase(name, f"{op['op']}: end_to_end {op['elapsed_ms']:.4f} ms, "
+                f"{op['rows_per_sec']:.6e} probe rows/s, measured HBM "
+                f"{report['hbm_bw_gbps']:.1f} GB/s, roofline {op['roofline_pct']:.2f}% "
+                f"(byte model {op['model_bytes']} B)")
+    return launches, s_np
+
+
+def config1_phase(dev, cfg, hbm_bw):
+    from tpq_torch.bench.runner import phase_report
+
+    launches, _ = run_path("config1", dev, cfg, {"pad", "pack", "fused_walk_emit"},
+                           "join_hash_lane", hbm_bw)
     phases = phase_report(cfg, device=dev)
     phase("config1", "phases (ms): " + ", ".join(
         f"{p['phase']} {p['ms']:.4f}" for p in phases))
+    return launches
+
+
+def config3_phase(dev, cfg, hbm_bw):
+    from tpq_torch.bench.runner import gen
+    from tpq_torch.ops.skew_join import nominate_heavy_keys
+
+    launches, s_np = run_path(
+        "config3", dev, cfg, {"pad", "pack", "fused_walk_emit", "probe_walk"},
+        "join_hash_skew", hbm_bw)
+    s = gen(cfg.s, dev)
+    heavy, n_heavy, _ = nominate_heavy_keys(s.col("key"), s.num_rows)
+    heavy = heavy[:int(n_heavy)].cpu().numpy()
+    share = float(np.isin(s_np["key"], heavy).mean())
+    phase("config3", f"heavy keys {len(heavy)}, carrying {share:.4f} of the "
+                     f"{len(s_np['key'])} probe rows")
+    return launches
+
+
+def merge_phase(dev, cfg, hbm_bw):
+    from dataclasses import replace
+
+    from tpq_torch.bench.runner import cuda_time, gen, out_capacity_for
+    from tpq_torch.ops import merge_join
+
+    cfg = replace(cfg, join=replace(cfg.join, algo="merge", sort_engine="radix"))
+    launches, _ = run_path("merge", dev, cfg, {"split1"}, "join_merge_radix", hbm_bw,
+                           oracle_algo="merge")
+    check(launches["split1"] == 66, f"split launched {launches['split1']} times, "
+                                    f"expected 66")
+    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+    cap = out_capacity_for(cfg)
+    t_lax1, t_rad1, t_rad2, t_lax2 = (
+        cuda_time(lambda e=e: merge_join(r, s, cap, sort_engine=e), dev, 5)[0] * 1e3
+        for e in ("lax", "radix", "radix", "lax"))
+    phase("merge", f"end_to_end radix {(t_rad1 + t_rad2) / 2:.4f} ms "
+                   f"({t_rad1:.4f}, {t_rad2:.4f}), lax {(t_lax1 + t_lax2) / 2:.4f} ms "
+                   f"({t_lax1:.4f}, {t_lax2:.4f}), 5 joins each, in turns")
     return launches
 
 
@@ -213,6 +474,7 @@ def fallback_phase(dev):
     from tpq_torch.columnar import canonicalize, tables_equal
     from tpq_torch.kernels.lane2 import lane2_path_taken
     from tpq_torch.ops import hash_join
+    from tpq_torch.ops.skew_join import skew_path_taken
 
     k1, k2 = 7302945295039616556, 3449075177175606448  # same (bucket, h2)
     R = Table.from_numpy({"key": np.array([k1, k2, 5, 6, 7], dtype=np.int64),
@@ -226,11 +488,25 @@ def fallback_phase(dev):
     check(tables_equal(canonicalize(a), canonicalize(b)), "fallback rows differ")
     phase("fallback", "h2 collision: ok=False, lane join == sorted join (4 rows)")
 
+    # one key on both sides: 128 build rows overflow the mini table's D 64
+    R = Table.from_numpy({"key": np.full(128, 5, np.int64),
+                          "p0": np.arange(128, dtype=np.int64)}, device=dev)
+    S = Table.from_numpy({"key": np.full(512, 5, np.int64),
+                          "p0": np.arange(512, dtype=np.int64)}, device=dev)
+    check(not bool(skew_path_taken(R, S, 1 << 17)), "all-equal keys kept `ok`")
+    a = hash_join(R, S, 1 << 17, impl="skew")
+    b = hash_join(R, S, 1 << 17, impl="sorted")
+    check(int(a.num_rows) == int(b.num_rows) == 128 * 512, "skew fallback row count")
+    check(tables_equal(canonicalize(a), canonicalize(b)), "skew fallback rows differ")
+    phase("fallback", "all-equal keys: skew ok=False, skew join == sorted join "
+                      "(65536 rows)")
+
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this check runs only on a card")
     sys.path.insert(0, ROOT)
+    from tpq_torch.bench import roofline
     from tpq_torch.bench.runner import card_info
     from tpq_torch.config import PRESETS
     from tpq_torch.kernels import _build
@@ -248,20 +524,28 @@ def main():
                    f"{len(_build.sources())} sources in {secs:.1f} s "
                    f"({time.perf_counter() - t0:.1f} s with loading)")
 
-    cfg = PRESETS["single_chip_1m"]
-    times, errs = kernel_phase(dev, cfg)
-    launches = config1_phase(dev, cfg)
+    hbm_bw = roofline.measure_hbm_bw(device=dev)
+    phase("device", f"measured copy rate {hbm_bw:.1f} GB/s")
+
+    cfg1, cfg3 = PRESETS["single_chip_1m"], PRESETS["zipf_skew"]
+    records = kernel_phase(dev, cfg1, cfg3, hbm_bw)
+    per_join = {"config1": config1_phase(dev, cfg1, hbm_bw),
+                "config3": config3_phase(dev, cfg3, hbm_bw),
+                "merge": merge_phase(dev, cfg1, hbm_bw)}
     fallback_phase(dev)
 
     meta = {
         "pad": ("tpq_torch/csrc/move.cu", "tpq/kernels/move.py:117"),
         "pack": ("tpq_torch/csrc/move.cu", "tpq/kernels/move.py:242"),
         "fused_walk_emit": ("tpq_torch/csrc/lane2.cu", "tpq/kernels/lane2.py:223"),
+        "probe_walk": ("tpq_torch/csrc/lane2.cu", "tpq/kernels/lane_table.py:293"),
+        "split1": ("tpq_torch/csrc/radix_sort.cu", "tpq/kernels/radix_sort.py:140"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": sum(c[name] for c in per_join.values()),
+         "launches_per_join": {path: c[name] for path, c in per_join.items()},
+         **records[name]}
         for name, (src, rep) in meta.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

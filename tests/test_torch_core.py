@@ -72,7 +72,7 @@ def test_datagen_streams_match_tpq(kind, nkeys, theta):
 def test_table_roundtrip_and_canonical_order():
     cols = {"key": np.array([2, 1, 2, 1, 9], dtype=np.int64),
             "p0": np.array([0, 5, -1, 4, 3], dtype=np.int32)}
-    t = Table.from_numpy(cols)
+    t = Table.from_numpy(cols, device="cpu")
     assert t.capacity == next_pow2(5) == 8
     assert t.num_rows.dtype == torch.int32 and int(t.num_rows) == 5
     assert t.valid_mask().tolist() == [True] * 5 + [False] * 3
@@ -82,9 +82,28 @@ def test_table_roundtrip_and_canonical_order():
     assert c["key"].tolist() == [1, 1, 2, 2, 9]
     assert c["p0"].tolist() == [4, 5, -1, 0, 3]
     with pytest.raises(ValueError):
-        Table.from_numpy(cols, capacity=4)
+        Table.from_numpy(cols, capacity=4, device="cpu")
     with pytest.raises(ValueError):
         Table({"a": torch.zeros(4), "b": torch.zeros(8)}, 2)
+
+
+def test_entry_points_default_to_the_card():
+    """Table.from_numpy, gen_relation and lane_tables_from_numpy place
+    their tensors on "cuda" unless told otherwise; without a card torch's
+    own error surfaces (no silent CPU)."""
+    import inspect
+
+    from tpq_torch.kernels.lane_table import lane_tables_from_numpy
+
+    for fn in (Table.from_numpy, datagen.gen_relation, lane_tables_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert Table.from_numpy({"key": np.arange(3)}).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            Table.from_numpy({"key": np.arange(3)})
+        with pytest.raises((AssertionError, RuntimeError)):
+            datagen.gen_relation(10, 5)
 
 
 def test_colio_roundtrip_and_bytes_match_tpq(tmp_path):

@@ -15,9 +15,12 @@ from tpq_torch import Table, datagen
 from tpq_torch.columnar import canonicalize, tables_equal
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, plan_lane2)
-from tpq_torch.kernels.lane_table import _probe_layout
+from tpq_torch.kernels.lane_table import (LanePlan, _probe_layout,
+                                          build_lane_tables, probe_walk,
+                                          probe_walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
-from tpq_torch.ops import hash_join
+from tpq_torch.kernels.radix_sort import _split1, split1_ref
+from tpq_torch.ops import hash_join, merge_join
 
 pytestmark = pytest.mark.cuda
 
@@ -104,7 +107,8 @@ def test_join_on_card_matches_cpu(dev, impl):
     s = datagen.gen_relation_np(30_000, 8_000, payloads=1, seed=6)
     on_card = hash_join(Table.from_numpy(r, device=dev),
                         Table.from_numpy(s, device=dev), 1 << 17, impl=impl)
-    on_cpu = hash_join(Table.from_numpy(r), Table.from_numpy(s), 1 << 17, impl=impl)
+    on_cpu = hash_join(Table.from_numpy(r, device="cpu"),
+                       Table.from_numpy(s, device="cpu"), 1 << 17, impl=impl)
     assert int(on_card.num_rows) == int(on_cpu.num_rows)
     assert tables_equal(canonicalize(on_card), canonicalize(on_cpu))
     again = hash_join(Table.from_numpy(r, device=dev),
@@ -112,3 +116,87 @@ def test_join_on_card_matches_cpu(dev, impl):
     n = int(on_card.num_rows)
     for k in on_card.columns:  # deterministic rows, order included
         _eq(on_card.columns[k][:n], again.columns[k][:n])
+
+
+@pytest.mark.parametrize("npart", [1, 8])
+@pytest.mark.parametrize("depth", [16, 48, 64])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_probe_walk_matches_plain(dev, k, depth, npart):
+    """The walk-only probe over 0-4 build payload columns; one partition
+    takes the identity layout, eight the sort + PAD layout. Keys repeat
+    up to ~10 times, so cnt passes K."""
+    rows = 1500 if npart == 1 else 8000
+    for npay in range(5):
+        r = datagen.gen_relation(rows, rows // 3, payloads=max(npay, 1),
+                                 seed=npay + 1, device=dev)
+        if npay == 0:
+            r = Table({"key": r.col("key")}, r.num_rows)
+        s = datagen.gen_relation(rows, rows // 3, payloads=1, seed=9, device=dev)
+        probe_cap = s.capacity if npart == 1 else 2048
+        plan = LanePlan(pbits=npart.bit_length() - 1, depth=depth,
+                        probe_cap=probe_cap, inline_k=k, tail_rows_cap=2048,
+                        tail_out_cap=4096)
+        tables = build_lane_tables(r, plan)
+        qk, _, lane, qocc, ovf = _probe_layout(plan, s, "key")
+        assert not bool(ovf)
+        before = probe_walk.launches
+        cnt, d_first, pays = probe_walk(tables, qk, lane, qocc)
+        assert probe_walk.launches == before + 1
+        rcnt, rdf, rpays = probe_walk_ref(tables, qk, lane, qocc)
+        _eq(cnt, rcnt)
+        _eq(d_first, rdf)
+        assert len(pays) == k and all(len(row) == npay for row in pays)
+        for row, rrow in zip(pays, rpays):
+            for a, b in zip(row, rrow):
+                _eq(a, b)
+        if depth >= 48:
+            assert bool(tables.ok) and int(rcnt.max()) > k
+
+
+@pytest.mark.parametrize("nplanes", [1, 16, 17])
+@pytest.mark.parametrize("n,bits", [(100_003, "mixed"), (4096 * 3 + 5, "zeros"),
+                                    (5000, "ones"), (1, "mixed")])
+def test_split1_matches_plain(dev, n, bits, nplanes):
+    """n not a multiple of the 4096-row block, n0 = n (all zeros) and
+    n0 = 0 (all ones); 17 planes take two scatter launches."""
+    rng = np.random.default_rng(n)
+    bit = {"mixed": rng.integers(0, 2, n), "zeros": np.zeros(n),
+           "ones": np.ones(n)}[bits]
+    bit = torch.from_numpy(bit.astype(np.int32)).to(dev)
+    planes = [torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n)
+                               .astype(np.int32)).to(dev) for _ in range(nplanes)]
+    before = _split1.launches
+    out = _split1(planes, bit)
+    assert _split1.launches == before + 1
+    for a, b in zip(out, split1_ref(planes, bit)):
+        _eq(a, b)
+
+
+def test_skew_join_on_card_matches_cpu(dev):
+    r = datagen.gen_relation_np(60_000, 65_536, payloads=1, seed=11)
+    s = datagen.gen_relation_np(60_000, 65_536, payloads=1, seed=22, kind="zipf")
+    before = probe_walk.launches
+    on_card = hash_join(Table.from_numpy(r, device=dev),
+                        Table.from_numpy(s, device=dev), 1 << 18, impl="skew")
+    assert probe_walk.launches == before + 2  # membership of R and of S
+    on_cpu = hash_join(Table.from_numpy(r, device="cpu"),
+                       Table.from_numpy(s, device="cpu"), 1 << 18, impl="skew")
+    assert int(on_card.num_rows) == int(on_cpu.num_rows)
+    assert tables_equal(canonicalize(on_card), canonicalize(on_cpu))
+
+
+def test_radix_merge_on_card_matches_cpu(dev):
+    r = datagen.gen_relation_np(20_000, 8_000, payloads=2, seed=5)
+    s = datagen.gen_relation_np(30_000, 8_000, payloads=1, seed=6)
+    r["key"][:500] -= 1 << 40
+    s["key"][:700] -= 1 << 40
+    before = _split1.launches
+    on_card = merge_join(Table.from_numpy(r, device=dev),
+                         Table.from_numpy(s, device=dev), 1 << 17,
+                         sort_engine="radix")
+    assert _split1.launches == before + 66
+    on_cpu = merge_join(Table.from_numpy(r, device="cpu"),
+                        Table.from_numpy(s, device="cpu"), 1 << 17,
+                        sort_engine="radix")
+    assert int(on_card.num_rows) == int(on_cpu.num_rows)
+    assert tables_equal(canonicalize(on_card), canonicalize(on_cpu))

@@ -4,14 +4,18 @@ the join cases of tests/test_ops_oracle.py, edge keys, empty sides,
 all-equal keys, overflow, the h2-collision fallback and determinism.
 The port runs alone here; nothing is compiled, so every case is cheap."""
 
+import argparse
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
 from tpq_torch import Table, colio, datagen
-from tpq_torch.bench.runner import run_config
+from tpq_torch.bench.runner import add_join_args, config_from_args, run_config
 from tpq_torch.columnar import canonicalize
 from tpq_torch.config import PRESETS
+from tpq_torch.kernels import radix_sort
 from tpq_torch.kernels.lane2 import lane2_path_taken
 from tpq_torch.kernels.lane_table import LanePlan
 from tpq_torch.ops import hash_join
@@ -44,8 +48,8 @@ def _oracle_join(oracle, tmp_path, r_cols, s_cols, tag):
 
 def _join_case(oracle, tmp_path, r_cols, s_cols, impl, out_capacity, tag):
     expected = _oracle_join(oracle, tmp_path, r_cols, s_cols, tag)
-    out = hash_join(Table.from_numpy(r_cols), Table.from_numpy(s_cols),
-                    out_capacity, impl=impl)
+    out = hash_join(Table.from_numpy(r_cols, device="cpu"),
+                    Table.from_numpy(s_cols, device="cpu"), out_capacity, impl=impl)
     assert int(out.num_rows) <= out_capacity, f"{tag}: overflow"
     assert_tables_equal(canonicalize(out), expected, tag)
 
@@ -88,8 +92,8 @@ def test_join_all_equal_keys(oracle, tmp_path, impl):
 
 @pytest.mark.parametrize("impl", IMPLS)
 def test_join_overflow_detected(impl):
-    r = Table.from_numpy({"key": np.zeros(64, dtype=np.int64)})
-    s = Table.from_numpy({"key": np.zeros(64, dtype=np.int64)})
+    r = Table.from_numpy({"key": np.zeros(64, dtype=np.int64)}, device="cpu")
+    s = Table.from_numpy({"key": np.zeros(64, dtype=np.int64)}, device="cpu")
     out = hash_join(r, s, 128, impl=impl)  # true size 4096
     assert int(out.num_rows) == 4096  # > capacity: the caller sees overflow
 
@@ -105,7 +109,7 @@ def test_lane_h2_hazard_falls_back_exact(oracle, tmp_path):
          "p0": np.arange(5, dtype=np.int64)}
     s = {"key": np.array([k1, k2, k1, 6], dtype=np.int64),
          "p0": np.arange(4, dtype=np.int64) * 10}
-    R, S = Table.from_numpy(r), Table.from_numpy(s)
+    R, S = Table.from_numpy(r, device="cpu"), Table.from_numpy(s, device="cpu")
     assert not bool(lane2_path_taken(R, S, 1 << 8, plan=plan))
     assert not bool(lane2_path_taken(R, S, 1 << 8))
     a = hash_join(R, S, 1 << 8, impl="lane")
@@ -120,8 +124,10 @@ def test_determinism_two_runs(impl):
     """Same inputs twice => byte-identical output columns."""
     r = datagen.gen_relation_np(2000, 100, payloads=1, seed=1)
     s = datagen.gen_relation_np(2000, 100, payloads=1, seed=2)
-    a = hash_join(Table.from_numpy(r), Table.from_numpy(s), 1 << 17, impl=impl)
-    b = hash_join(Table.from_numpy(r), Table.from_numpy(s), 1 << 17, impl=impl)
+    a = hash_join(Table.from_numpy(r, device="cpu"),
+                  Table.from_numpy(s, device="cpu"), 1 << 17, impl=impl)
+    b = hash_join(Table.from_numpy(r, device="cpu"),
+                  Table.from_numpy(s, device="cpu"), 1 << 17, impl=impl)
     assert int(a.num_rows) == int(b.num_rows)
     for k in a.columns:
         assert torch.equal(a.columns[k], b.columns[k]), k
@@ -135,7 +141,7 @@ def test_int32_columns_keep_their_dtype():
          "p0": rng.integers(-(1 << 31), 1 << 31, 900).astype(np.int32)}
     s = {"key": rng.integers(-50, 50, 700).astype(np.int32),
          "q": rng.integers(0, 1 << 40, 700)}
-    R, S = Table.from_numpy(r), Table.from_numpy(s)
+    R, S = Table.from_numpy(r, device="cpu"), Table.from_numpy(s, device="cpu")
     a = hash_join(R, S, 1 << 15, impl="lane")
     b = union_join(R, S, 1 << 15)
     assert [c.dtype for c in a.columns.values()] == [torch.int32, torch.int32,
@@ -157,13 +163,36 @@ def test_runner_smoke_1k_on_cpu():
     assert rep["ops"][0]["elapsed_ms"] is None
 
 
+
+def test_runner_cli_selects_the_radix_merge(monkeypatch):
+    """--algo and --sort-engine reach the runner's join: the radix merge
+    runs its 66 split passes, labels its row by its engine and gives the
+    lax engine's rows."""
+    passes = []
+
+    def split(planes, bit, _split=radix_sort._split1):
+        passes.append(1)
+        return _split(planes, bit)
+
+    monkeypatch.setattr(radix_sort, "_split1", split)
+    p = argparse.ArgumentParser()
+    add_join_args(p)
+    cfg = config_from_args(p.parse_args(["--config=smoke_1k", "--algo=merge",
+                                         "--sort-engine=radix"]))
+    rep = run_config(cfg, device="cpu")
+    assert rep["ops"][0]["op"] == "join_merge_radix" and len(passes) == 66
+    lax = run_config(replace(cfg, join=replace(cfg.join, sort_engine="lax")),
+                     device="cpu")
+    assert lax["ops"][0]["op"] == "join_merge_lax" and len(passes) == 66
+    assert rep["out_rows"] == lax["out_rows"] > 0
+    assert_tables_equal(canonicalize(rep["output"]), canonicalize(lax["output"]))
+
+
 def test_unported_paths_raise():
-    R = Table.from_numpy({"key": np.arange(8, dtype=np.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hash_join(R, R, 64, impl="skew")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        union_join(R, R, 64, sort_engine="radix")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hash_join(R, R, 64, probe_keep=torch.ones(8, dtype=torch.bool))
+    R = Table.from_numpy({"key": np.arange(8, dtype=np.int64)}, device="cpu")
+    keep = torch.ones(8, dtype=torch.bool)
+    for impl in ("lane", "sorted", "skew"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            hash_join(R, R, 64, impl=impl, probe_keep=keep)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_config(PRESETS["smoke_pipeline"], device="cpu")

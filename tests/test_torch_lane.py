@@ -81,7 +81,7 @@ def test_plan_matches_tpq(preset):
 
 
 def test_build_matches_tpq(tpq_lane):
-    r = Table.from_numpy(R_NP)
+    r = Table.from_numpy(R_NP, device="cpu")
     plan = plan_lane2(r.capacity, 2048, out_capacity=CAP)
     assert plan == tpq_lane["plan"]
     t = build_lane2_tables(r, plan)
@@ -100,9 +100,9 @@ def test_build_matches_tpq(tpq_lane):
 def test_fused_walk_emit_on_tpq_tables(tpq_lane):
     tables = lane_tables_from_numpy(tpq_lane["plan"], tpq_lane["key_planes"],
                                     tpq_lane["pay_planes"], tpq_lane["occ"],
-                                    tpq_lane["ok"])
+                                    tpq_lane["ok"], device="cpu")
     outs, cnt, d_first, _, _, qocc, _, ovf = fused_probe_emit2(
-        tables, Table.from_numpy(S_NP), CAP)
+        tables, Table.from_numpy(S_NP, device="cpu"), CAP)
     assert not bool(ovf)
     np.testing.assert_array_equal(cnt.numpy(), tpq_lane["cnt"])
     np.testing.assert_array_equal(d_first.numpy(), tpq_lane["d_first"])
@@ -122,13 +122,13 @@ def test_port_build_walks_like_tpq_build(tpq_lane):
     """The port's own tables give the fused kernel the same results as
     tpq's tables passed across."""
     plan = tpq_lane["plan"]
-    s = Table.from_numpy(S_NP)
-    mine = fused_probe_emit2(build_lane2_tables(Table.from_numpy(R_NP), plan),
-                             s, CAP)
+    s = Table.from_numpy(S_NP, device="cpu")
+    r = Table.from_numpy(R_NP, device="cpu")
+    mine = fused_probe_emit2(build_lane2_tables(r, plan), s, CAP)
     across = fused_probe_emit2(
         lane_tables_from_numpy(plan, tpq_lane["key_planes"],
                                tpq_lane["pay_planes"], tpq_lane["occ"],
-                               tpq_lane["ok"]), s, CAP)
+                               tpq_lane["ok"], device="cpu"), s, CAP)
     for a, b in zip(mine[:3], across[:3]):
         for x, y in zip(a if isinstance(a, list) else [a],
                         b if isinstance(b, list) else [b]):
@@ -136,7 +136,7 @@ def test_port_build_walks_like_tpq_build(tpq_lane):
 
 
 def test_hash_join_lane_matches_tpq(tpq_lane):
-    r, s = Table.from_numpy(R_NP), Table.from_numpy(S_NP)
+    r, s = Table.from_numpy(R_NP, device="cpu"), Table.from_numpy(S_NP, device="cpu")
     assert bool(lane2_path_taken(r, s, CAP))
     out = hash_join(r, s, CAP, impl="lane")
     assert_tables_equal(canonicalize(out), tpq_lane["join"], "lane join")

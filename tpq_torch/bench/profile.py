@@ -1,0 +1,100 @@
+"""Where a join's time goes on the card.
+
+torch.profiler traces JOINS joins after a warm-up; the device activities
+of the trace (kernels, memsets, copies) are merged into busy intervals.
+The end-to-end time per join is taken apart from the trace, with CUDA
+events around unprofiled joins, so the profiler's own host cost does not
+stretch it.
+
+CLI (needs a card), with the bench runner's preset and join options:
+  python -m tpq_torch.bench.profile --config=zipf_skew
+  python -m tpq_torch.bench.profile --config=single_chip_1m --algo=merge \\
+      --sort-engine=radix
+prints one JSON object: end-to-end ms per join, device busy ms per join,
+the device's idle share of the join (1 - busy / end to end), device
+activities per join and the TOP largest device items by name, each with
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import torch
+
+from tpq_torch.bench.runner import (add_join_args, card_info, config_from_args,
+                                    cuda_time, gen, join_fn, out_capacity_for)
+
+JOINS = 10
+TOP = 12
+
+
+def device_activities(prof) -> list[tuple[float, float, str]]:
+    """(start us, end us, name) of every device activity in a trace."""
+    return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(acts) -> float:
+    """Total length of the union of the activity intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e, _ in sorted(acts):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def profile_join(fn, device) -> dict:
+    e2e_s, _ = cuda_time(fn, device, JOINS, warmup=3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(JOINS):
+            fn()
+        torch.cuda.synchronize(device)
+    acts = device_activities(prof)
+    if not acts:
+        raise RuntimeError("the trace holds no device activity: device time not measured")
+    by_name: dict[str, list] = {}
+    for s, e, name in acts:
+        rec = by_name.setdefault(name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += e - s
+    busy_ms = busy_us(acts) / 1e3 / JOINS
+    e2e_ms = e2e_s * 1e3
+    items = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    return {
+        "end_to_end_ms": e2e_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / e2e_ms,
+        "device_activities_per_join": len(acts) / JOINS,
+        "top": [{"name": n[:120], "launches_per_join": c / JOINS,
+                 "ms_per_join": t / 1e3 / JOINS} for n, (c, t) in items],
+    }
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser()
+    add_join_args(p)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("tpq_torch.bench.profile traces a CUDA card; none is visible")
+
+    cfg = config_from_args(args)
+    dev = torch.device("cuda")
+    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+    j = cfg.join
+    what = (f"hash_join(impl={j.impl!r})" if j.algo == "hash"
+            else f"merge_join(sort_engine={j.sort_engine!r})")
+    report = {"config": cfg.name, "join": what, "card": card_info(),
+              **profile_join(join_fn(cfg, r, s, out_capacity_for(cfg)), dev)}
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()

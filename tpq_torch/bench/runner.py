@@ -1,13 +1,14 @@
 """Config-driven benchmark runner (port of tpq/bench/runner.py), for the
-hash join so far.
+joins so far: hash (lane, sorted, skew impls) and merge.
 
 Generates the seed-stable relations of a preset on the card, times the
 join with CUDA events after a warm-up, accounts it against the measured
-bandwidth roofline, and labels the row honestly when the lane path fell
-back to the sorted engine. Times exist only for a run on a card: on the
-CPU, run_config runs the join once and reports no time.
+bandwidth roofline, and labels the row honestly when the lane or skew
+path fell back to the sorted engine. Times exist only for a run on a
+card: on the CPU, run_config runs the join once and reports no time.
 
 CLI:  python -m tpq_torch.bench.runner --config=single_chip_1m [--phases]
+      [--algo hash|merge] [--impl lane|sorted|skew] [--sort-engine lax|radix]
 prints the bench.py one-line JSON under the metric
 hash_join_probe_rows_per_sec_1chip_torch as its last line.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+from dataclasses import replace
 
 import torch
 
@@ -24,7 +26,7 @@ from tpq_torch import datagen
 from tpq_torch.bench import roofline
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.config import PRESETS, BenchConfig, RelationSpec
-from tpq_torch.ops import hash_join
+from tpq_torch.ops import hash_join, merge_join
 
 METRIC = "hash_join_probe_rows_per_sec_1chip_torch"
 
@@ -100,39 +102,63 @@ def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]
     ]
 
 
+def join_fn(cfg: BenchConfig, r: Table, s: Table, out_cap: int):
+    """The join a preset names, as a call with no arguments."""
+    j = cfg.join
+    if j.algo == "hash":
+        return lambda: hash_join(r, s, out_cap, impl=j.impl)
+    if j.algo == "merge":
+        return lambda: merge_join(r, s, out_cap, sort_engine=j.sort_engine)
+    raise ValueError(f"unknown algo {j.algo!r}")
+
+
+def add_join_args(p) -> None:
+    """The preset and join overrides that every bench CLI takes."""
+    p.add_argument("--config", default="single_chip_1m", choices=sorted(PRESETS))
+    p.add_argument("--algo", default=None, choices=[None, "hash", "merge"])
+    p.add_argument("--impl", default=None, choices=[None, "lane", "sorted", "skew"])
+    p.add_argument("--sort-engine", default=None, choices=[None, "lax", "radix"])
+
+
+def config_from_args(args) -> BenchConfig:
+    cfg = PRESETS[args.config]
+    over = {k: v for k, v in (("algo", args.algo), ("impl", args.impl),
+                              ("sort_engine", args.sort_engine)) if v}
+    return replace(cfg, join=replace(cfg.join, **over)) if over else cfg
+
+
 def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
                device="cuda") -> dict:
-    """Runs a hash-join preset on `device`. The report's "output" is the
+    """Runs a join preset on `device`. The report's "output" is the
     join's Table from the last timed call."""
     if cfg.pipeline:
         raise NotImplementedError(
             "the filter->join->aggregate pipeline is not yet ported "
             "(ROADMAP.md Queue 1 item 6)")
-    if cfg.join.algo != "hash":
-        raise NotImplementedError(
-            "merge join is not yet ported (ROADMAP.md Queue 1 item 8)")
     dev = torch.device(device)
     r, s = gen(cfg.r, dev), gen(cfg.s, dev)
     out_cap = out_capacity_for(cfg)
-    impl = cfg.join.impl
-
-    def fn():
-        return hash_join(r, s, out_cap, impl=impl)
-
-    op = f"join_hash_{impl}"
-    if impl == "lane":
-        from tpq_torch.kernels.lane2 import lane2_path_taken
-
+    fn = join_fn(cfg, r, s, out_cap)
+    algo, impl = cfg.join.algo, cfg.join.impl
+    if algo == "hash":
+        bytes_model, op = roofline.hash_join_bytes, f"join_hash_{impl}"
+    else:
+        bytes_model, op = roofline.merge_join_bytes, f"join_merge_{cfg.join.sort_engine}"
+    if algo == "hash" and impl in ("lane", "skew"):
         # honesty guard: the row says when the sorted fallback was measured
-        if not bool(lane2_path_taken(r, s, out_cap)):
+        if impl == "lane":
+            from tpq_torch.kernels.lane2 import lane2_path_taken as taken
+        else:
+            from tpq_torch.ops.skew_join import skew_path_taken as taken
+        if not bool(taken(r, s, out_cap)):
             op += "_FELL_BACK_TO_SORTED"
 
     if dev.type == "cuda":
         if hbm_bw is None:
             hbm_bw = roofline.measure_hbm_bw(device=dev)
         sec, out = cuda_time(fn, dev, cfg.iters, cfg.warmup)
-        model = roofline.hash_join_bytes(r.capacity, len(r.columns), s.capacity,
-                                         len(s.columns), out_cap)
+        model = bytes_model(r.capacity, len(r.columns), s.capacity,
+                            len(s.columns), out_cap)
         row = roofline.RooflineResult(op, sec, sum(b.total for b in model.values()),
                                       hbm_bw, cfg.s.rows).row()
         name = torch.cuda.get_device_name(dev)
@@ -147,11 +173,9 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
 
 def main(argv=None):
     import argparse
-    from dataclasses import replace
 
     p = argparse.ArgumentParser()
-    p.add_argument("--config", default="single_chip_1m", choices=sorted(PRESETS))
-    p.add_argument("--impl", default=None, choices=[None, "lane", "sorted"])
+    add_join_args(p)
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--phases", action="store_true",
                    help="also report the per-phase ms of the lane join")
@@ -160,9 +184,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("tpq_torch.bench.runner measures on a CUDA card; none is visible")
 
-    cfg = PRESETS[args.config]
-    if args.impl:
-        cfg = replace(cfg, join=replace(cfg.join, impl=args.impl))
+    cfg = config_from_args(args)
     if args.iters:
         cfg = replace(cfg, iters=args.iters)
     report = run_config(cfg)

@@ -70,9 +70,10 @@ class Table:
 
     @classmethod
     def from_numpy(cls, columns: Mapping[str, np.ndarray],
-                   capacity: int | None = None, device="cpu") -> "Table":
+                   capacity: int | None = None, device="cuda") -> "Table":
         """Host import: pads every column to a shared pow2 capacity and
-        places it on `device`."""
+        places it on `device` (the card unless the caller names another;
+        without a card torch's own error surfaces)."""
         columns = dict(columns)
         n = len(next(iter(columns.values())))
         cap = capacity if capacity is not None else next_pow2(n)
@@ -97,6 +98,21 @@ class Table:
         """bool[capacity], True for live rows."""
         return torch.arange(self.capacity, dtype=torch.int32,
                             device=self.device) < self.num_rows
+
+    def with_capacity(self, capacity: int) -> "Table":
+        """Grow (zero-pad) or shrink (slice) the static capacity. Shrinking
+        below num_rows cuts live rows; num_rows is clamped to the new
+        capacity, as in tpq."""
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        cols = {}
+        for k, v in self.columns.items():
+            if capacity > cap:
+                cols[k] = torch.cat([v, v.new_zeros(capacity - cap)])
+            else:
+                cols[k] = v[:capacity]
+        return Table(cols, self.num_rows.clamp_max(capacity))
 
 
 def canonicalize(table: Table) -> dict[str, np.ndarray]:

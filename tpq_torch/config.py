@@ -3,7 +3,8 @@
 The named presets are tpq's, field for field; the bench runner
 (tpq_torch/bench/runner.py) consumes them. tpq's JoinConfig fields that
 nothing reads (partition_bits, vmem_budget_bytes, table_load_factor,
-max_displacement) are left out.
+max_displacement) are left out; `sort_engine` names the engine of
+merge_join (tpq's runner always takes its default, lax).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ class JoinConfig:
 
     algo: str = "hash"  # hash | merge
     impl: str = "lane"  # lane | sorted | skew
+    sort_engine: str = "lax"  # merge_join's engine: lax | radix
     out_capacity_factor: float = 4.0  # x max(|R|,|S|) static output slack
 
 

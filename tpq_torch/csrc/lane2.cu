@@ -1,6 +1,7 @@
-// Fused lane walk + emit for Hopper (sm_90a): the port of
-// tpq/kernels/lane2.py _fused2_kernel (wrapper fused_probe_emit2) and the
-// walk it shares with lane_table._walk.
+// Lane-table probes for Hopper (sm_90a): the fused walk + emit, port of
+// tpq/kernels/lane2.py _fused2_kernel (wrapper fused_probe_emit2), and
+// the walk-only probe, port of tpq/kernels/lane_table.py _probe_kernel
+// (wrapper probe_lane_tables); both share the walk of lane_table._walk.
 //
 // What it computes. Build tables hold, per partition p, a [D, 128] tile
 // per column: lane l's bucket is the column (0..blen[p][l]-1, l). Padded
@@ -25,13 +26,22 @@
 //     on every run. Rows go out in (padded query, j) order; rows at or
 //     past out_capacity are dropped (the caller sees the overflow in its
 //     totals).
-// The walk launch alone is, in substance, tpq's probe_lane_tables kernel
-// without its inline payload outputs.
 //
 // Bound: the walk reads every padded query (key, lane, occ: 16 B) and
 // each partition's key tile once per chunk, mostly from L2; the emit
 // reads them again and writes the output rows. Shared-memory reads of
 // the walk (about blen per query) are the inner loop.
+//
+// probe_walk_kernel is the walk-only probe, the port of
+// tpq/kernels/lane_table.py _probe_kernel (wrapper probe_lane_tables),
+// which the skew join's membership probe runs. It stages the same tile
+// as the walk launch and writes, per padded query, cnt, d_first and the
+// build payloads of its first K matches (0 past cnt and for dead
+// queries), each read from device memory on a match. Bound by bytes:
+// it reads each query (key, lane, occ: 16 B) once and writes 8 B plus
+// 8 B per (rank, payload column); the key tile comes from L2 for all
+// but the first CTA of a partition. With no payload columns (the
+// key-only list table of the skew join) only cnt and d_first go out.
 
 #include "common.cuh"
 
@@ -98,6 +108,56 @@ __global__ void walk_kernel(const int64_t* __restrict__ t_key,
   int32_t total;
   block_exclusive_scan(rows, warp_sums, &total);
   if (threadIdx.x == 0) block_rows[blockIdx.y * gridDim.x + blockIdx.x] = total;
+}
+
+constexpr int kMaxK = 8;  // MAX_K in tpq_torch/kernels/lane_table.py
+
+struct ProbeCols {
+  const int64_t* tpay[TPQ_MAX_COLS];        // build payloads [npart, D, 128]
+  int64_t* out[kMaxK * TPQ_MAX_COLS];       // rank j, column i at [j * n + i]
+  int n;
+};
+
+// grid (chunks per partition, npart)
+__global__ void probe_walk_kernel(const int64_t* __restrict__ t_key,
+                                  const int32_t* __restrict__ blen,
+                                  const int64_t* __restrict__ qk,
+                                  const int32_t* __restrict__ lane,
+                                  const int32_t* __restrict__ qocc, int D,
+                                  int K, int probe_cap,
+                                  int32_t* __restrict__ cnt_out,
+                                  int32_t* __restrict__ dfirst_out,
+                                  ProbeCols cols) {
+  extern __shared__ int64_t s_key[];
+  __shared__ int32_t s_blen[kLanes];
+  const int p = blockIdx.y;
+  stage_tile(s_key, s_blen, t_key, blen, p, D);
+
+  for (int it = 0; it < kChunk / kThreads; it++) {
+    const int qi = blockIdx.x * kChunk + it * kThreads + threadIdx.x;
+    if (qi >= probe_cap) break;
+    const int64_t q = int64_t(p) * probe_cap + qi;
+    int c = 0, df = -1;
+    if (qocc[q] > 0) {
+      const int l = lane[q];
+      const int64_t key = qk[q];
+      const int bl = s_blen[l];
+      for (int d = 0; d < bl; d++) {
+        if (s_key[d * kLanes + l] != key) continue;
+        if (c == 0) df = d;
+        if (c < K) {
+          const int64_t slot = (int64_t(p) * D + d) * kLanes + l;
+          for (int i = 0; i < cols.n; i++)
+            cols.out[c * cols.n + i][q] = cols.tpay[i][slot];
+        }
+        c++;
+      }
+    }
+    cnt_out[q] = c;
+    dfirst_out[q] = df;
+    for (int j = min(c, K); j < K; j++)
+      for (int i = 0; i < cols.n; i++) cols.out[j * cols.n + i][q] = 0;
+  }
 }
 
 __global__ void emit_kernel(const int64_t* __restrict__ t_key,
@@ -182,6 +242,27 @@ int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
                                                 dfirst, D, K, probe_cap,
                                                 block_offsets, cols, out_key,
                                                 out_capacity);
+  return int(cudaGetLastError());
+}
+
+// outs holds K * npay column pointers, rank-major.
+int tpq_probe_walk(const int64_t* t_key, const int64_t* const* t_pays,
+                   int npay, const int32_t* blen, int npart, int D, int K,
+                   int probe_cap, const int64_t* qk, const int32_t* lane,
+                   const int32_t* qocc, int32_t* cnt, int32_t* dfirst,
+                   int64_t* const* outs, cudaStream_t stream) {
+  if (K < 1 || K > kMaxK || npay < 0 || npay > TPQ_MAX_COLS)
+    return int(cudaErrorInvalidValue);
+  ProbeCols cols;
+  cols.n = npay;
+  for (int i = 0; i < npay; i++) cols.tpay[i] = t_pays[i];
+  for (int i = 0; i < K * npay; i++) cols.out[i] = outs[i];
+  const size_t smem = size_t(D) * kLanes * sizeof(int64_t);
+  cudaFuncSetAttribute(probe_walk_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const dim3 grid((probe_cap + kChunk - 1) / kChunk, npart);
+  probe_walk_kernel<<<grid, kThreads, smem, stream>>>(
+      t_key, blen, qk, lane, qocc, D, K, probe_cap, cnt, dfirst, cols);
   return int(cudaGetLastError());
 }
 

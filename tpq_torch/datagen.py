@@ -90,7 +90,7 @@ def gen_relation_np(rows: int, nkeys: int, payloads: int = 1, seed: int = 0,
 
 def gen_relation(rows: int, nkeys: int, payloads: int = 1, seed: int = 0,
                  kind: str = "uniform", theta: float = 1.0,
-                 capacity: int | None = None, device="cpu") -> Table:
+                 capacity: int | None = None, device="cuda") -> Table:
     return Table.from_numpy(
         gen_relation_np(rows, nkeys, payloads, seed, kind, theta), capacity,
         device=device)

@@ -2,8 +2,9 @@
 
 `nvcc` compiles every source under tpq_torch/csrc/ into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds), in tpq_torch/build/ (git-ignored). The library is rebuilt when
-a source is newer than it. Each C entry point returns cudaGetLastError();
+seconds), in tpq_torch/build/ (git-ignored): one `nvcc -c` per source,
+all started together, then one link. The library is rebuilt when a
+source is newer than it. Each C entry point returns cudaGetLastError();
 `check` raises on anything but 0.
 
 Nothing here runs at import: the CPU tests import every module, and
@@ -25,7 +26,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SO = BUILD / "libtpq_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -34,6 +35,8 @@ _SIGNATURES = {
     "tpq_pack": [P, P, P, I32, P, I64, P, P, P, P],
     "tpq_walk_emit": [P, P, I32, P, I32, I32, I32, I32, P, P, P, P, I32, P, P,
                       P, P, P, I64, P, P, P, P],
+    "tpq_probe_walk": [P, P, I32, P, I32, I32, I32, I32, P, P, P, P, P, P, P],
+    "tpq_split1": [P, P, I32, P, I64, P, P, P, P],
     "tpq_copy": [P, P, I64, P],
 }
 
@@ -63,20 +66,28 @@ def build(force: bool = False) -> float:
         return 0.0
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build into a temporary name, then rename: a concurrent loader sees
+    nvcc = nvcc_path()
+    # build into temporary names, then rename: a concurrent loader sees
     # either the old library or the complete new one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    try:
-        res = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())],
-            capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources(), objs)]
+        errors = []
+        for src, proc in zip(sources(), procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        so = os.path.join(tmp, SO.name)
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(so, SO)
     return time.perf_counter() - t0
 
 
@@ -92,8 +103,9 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         so.tpq_error_string.argtypes = [ctypes.c_int]
         so.tpq_error_string.restype = ctypes.c_char_p
-        so.tpq_pack_tile.argtypes = []
-        so.tpq_pack_tile.restype = ctypes.c_int64
+        for name in ("tpq_pack_tile", "tpq_split1_tile"):
+            getattr(so, name).argtypes = []
+            getattr(so, name).restype = ctypes.c_int64
         _lib = so
     return _lib
 

@@ -22,15 +22,15 @@ import torch
 
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.kernels import _build
-from tpq_torch.kernels.lane_table import (L, LanePlan, LaneTables, _probe_layout,
-                                          _probe_emit_common, build_lane_tables)
+from tpq_torch.kernels.lane_table import (L, SMEM_LIMIT, LanePlan, LaneTables,
+                                          _probe_emit_common, _probe_layout,
+                                          build_lane_tables, walk_ref)
 from tpq_torch.kernels.move import MAX_COLS
 
 I32 = torch.int32
 I64 = torch.int64
 QROWS = 32  # tpq's query tile rows; the plan keeps its sizing rule
 CHUNK = 1024  # queries per CTA of the CUDA kernel (kChunk in lane2.cu)
-SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 
 def plan_lane2(r_capacity: int, s_capacity: int, depth: int = 48,
@@ -66,25 +66,9 @@ def fused_walk_emit_ref(tables: LaneTables, qk, lane, qocc, spays,
     cnt int32[u], d_first int32[u]); row order is (q, j) for
     j < min(cnt, K), rows at or past out_capacity are dropped and the
     unwritten slots are 0."""
-    plan = tables.plan
-    D, K, dev = plan.depth, plan.inline_k, qk.device
-    u = plan.npart * plan.probe_cap
-    p = torch.arange(u, device=dev) // plan.probe_cap
-    live = qocc > 0
-    lane = lane.to(I64)
-    blen = tables.blen[p, lane]
-    base = p * (D * L) + lane          # flat slot of depth 0
+    K, dev = tables.plan.inline_k, qk.device
+    cnt, d_first, d_sel, base = walk_ref(tables, qk, lane, qocc, K)
     key_flat = tables.key.reshape(-1)
-    cnt = torch.zeros(u, dtype=I32, device=dev)
-    d_first = torch.full((u,), -1, dtype=I32, device=dev)
-    d_sel = [torch.zeros(u, dtype=I64, device=dev) for _ in range(K)]
-    for d in range(D):
-        m = live & (d < blen) & (key_flat[base + d * L] == qk)
-        for j in range(K):
-            d_sel[j] = torch.where(m & (cnt == j), d, d_sel[j])
-        d_first = torch.where(m & (cnt == 0), d, d_first)
-        cnt += m.to(I32)
-
     n_emit = cnt.clamp_max(K).to(I64)
     offs = torch.cumsum(n_emit, 0) - n_emit
     srcs = ([key_flat] + [t.reshape(-1) for t in tables.pays]

@@ -12,7 +12,13 @@ The layout is tpq's, so that the same inputs give the same tables:
     `ok` and the join falls back. Rows are ranked within their bucket and
     PADded lane-major, then transposed to [npart, D, 128].
   * probe layout: queries grouped by partition with one stable sort and
-    PADded to [npart, probe_cap].
+    PADded to [npart, probe_cap]; the identity when npart == 1 and
+    probe_cap equals the probe capacity (the skew join's broadcast
+    tables).
+  * walk only (probe_lane_tables, the membership probe of the skew
+    join): count, first match depth and the first K matches' build
+    payloads of every padded query, by `probe_walk`
+    (tpq_torch/csrc/lane2.cu) beside its plain version `probe_walk_ref`.
   * tail: queries with more than K matches are PACKed, their extra
     matches expanded and PADded into a window spliced after the inline
     rows.
@@ -35,13 +41,16 @@ import torch
 
 from tpq_torch.columnar import Table
 from tpq_torch.hashing import hash_keys
-from tpq_torch.kernels.move import pack, pad
+from tpq_torch.kernels import _build
+from tpq_torch.kernels.move import MAX_COLS, pack, pad
 from tpq_torch.ops._expand import expand_segments, last_start
 from tpq_torch.ops.union_join import planes_col
 
 I32 = torch.int32
 I64 = torch.int64
 L = 128
+MAX_K = 8  # kMaxK in csrc/lane2.cu: inline ranks probe_walk emits
+SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 SALT_LANE = 0x1A9E0001
 SALT_H2 = 0x1A9E0002
 
@@ -86,7 +95,7 @@ def _tiles(x: torch.Tensor, plan: LanePlan) -> torch.Tensor:
 
 
 def lane_tables_from_numpy(plan: LanePlan, key_planes, pay_planes, occ, ok,
-                           device="cpu") -> LaneTables:
+                           device="cuda") -> LaneTables:
     """The port's tables from tpq's LaneTables fields as numpy arrays:
     key planes (1 for int32 keys, (lo, hi) for int64), payload planes in
     (lo, hi) pairs (tpq's int64 payloads), occ [npart, D, 128], ok."""
@@ -154,6 +163,11 @@ def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
     if keep is not None:
         valid = valid & keep
     h = hash_keys(sk, plan.pbits + 7, SALT_LANE)
+    if npart == 1 and probe_cap == s.capacity:
+        # one partition holding every query: the layout is the identity
+        # (no sort, no PAD), padded probe order = row order
+        return (sk, spays, (h & (L - 1)).to(I32), valid.to(I32),
+                torch.zeros((), dtype=torch.bool, device=sk.device))
     bucket_p = torch.where(valid, h >> 7, npart)
     bp_s, perm = torch.sort(bucket_p, stable=True)
 
@@ -171,6 +185,118 @@ def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
     return qk_p, padded[1:], lane_p, qocc, overflow
 
 
+# ---------------------------------------------------------------------------
+# the walk-only probe (kernel 4)
+# ---------------------------------------------------------------------------
+
+def walk_ref(tables: LaneTables, qk, lane, qocc, n_sel: int):
+    """Plain torch bucket walk shared by both probe kernels' plain
+    versions (tpq's _walk). Each live padded query q of partition
+    p = q // probe_cap walks depths d < blen[p, lane[q]] of its bucket.
+    Returns (cnt int32[u], d_first int32[u] (-1 without a match),
+    d_sel [int64[u]] * n_sel: the depth of match j, 0 where j >= cnt,
+    base int64[u]: the flat table slot of depth 0)."""
+    plan = tables.plan
+    D, dev = plan.depth, qk.device
+    u = plan.npart * plan.probe_cap
+    p = torch.arange(u, device=dev) // plan.probe_cap
+    live = qocc > 0
+    lane = lane.to(I64)
+    blen = tables.blen[p, lane]
+    base = p * (D * L) + lane
+    key_flat = tables.key.reshape(-1)
+    cnt = torch.zeros(u, dtype=I32, device=dev)
+    d_first = torch.full((u,), -1, dtype=I32, device=dev)
+    d_sel = [torch.zeros(u, dtype=I64, device=dev) for _ in range(n_sel)]
+    for d in range(D):
+        m = live & (d < blen) & (key_flat[base + d * L] == qk)
+        for j in range(n_sel):
+            d_sel[j] = torch.where(m & (cnt == j), d, d_sel[j])
+        d_first = torch.where(m & (cnt == 0), d, d_first)
+        cnt += m.to(I32)
+    return cnt, d_first, d_sel, base
+
+
+def probe_walk_ref(tables: LaneTables, qk, lane, qocc):
+    """Plain torch walk-only probe: defines the contract the kernel is
+    held to. Returns (cnt int32[u], d_first int32[u], pays): pays[j][i]
+    int64[u] is build payload column i of query q's match j for
+    j < min(cnt, K), else 0 (dead queries: cnt 0, d_first -1)."""
+    K = tables.plan.inline_k
+    cnt, d_first, d_sel, base = walk_ref(tables, qk, lane, qocc, K)
+    flats = [t.reshape(-1) for t in tables.pays]
+    pays = [[torch.where(cnt > j, f[base + d_sel[j] * L], 0) for f in flats]
+            for j in range(K)]
+    return cnt, d_first, pays
+
+
+def probe_walk(tables: LaneTables, qk, lane, qocc):
+    """The walk-only probe on the padded probe layout; see
+    probe_walk_ref for the contract. Launches counted in `.launches`."""
+    if qk.device.type == "cpu":
+        return probe_walk_ref(tables, qk, lane, qocc)
+    if qk.device.type != "cuda":
+        raise RuntimeError(f"probe_walk: no kernel for device {qk.device}")
+    plan = tables.plan
+    D, K, npart, probe_cap = plan.depth, plan.inline_k, plan.npart, plan.probe_cap
+    u = npart * probe_cap
+    dev = qk.device
+    if D * L * 8 + 1024 > SMEM_LIMIT:
+        raise ValueError(f"probe_walk: depth {D} does not fit shared memory")
+    if len(tables.pays) > MAX_COLS or not 1 <= K <= MAX_K:
+        raise ValueError(f"probe_walk: at most {MAX_COLS} payload columns and "
+                         f"1 <= K <= {MAX_K}")
+    if u >= 2**31:
+        raise ValueError("probe_walk: int32 query indices need u < 2^31")
+
+    def need(t, shape, dtype, what):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"probe_walk: {what} must be {dtype}{shape} on "
+                             f"{dev}, got {t.dtype}{tuple(t.shape)} on {t.device}")
+        return t.contiguous()
+
+    tshape = (npart, D, L)
+    t_key = need(tables.key, tshape, I64, "table key")
+    t_pays = [need(t, tshape, I64, "table payload") for t in tables.pays]
+    blen = need(tables.blen, (npart, L), I32, "blen")
+    qk = need(qk, (u,), I64, "query key")
+    lane = need(lane, (u,), I32, "lane")
+    qocc = need(qocc, (u,), I32, "qocc")
+
+    cnt = torch.empty(u, dtype=I32, device=dev)
+    d_first = torch.empty(u, dtype=I32, device=dev)
+    pays = [[torch.empty(u, dtype=I64, device=dev) for _ in t_pays]
+            for _ in range(K)]
+    with torch.cuda.device(dev):
+        code = _build.lib().tpq_probe_walk(
+            t_key.data_ptr(), _build.ptr_array(t_pays), len(t_pays),
+            blen.data_ptr(), npart, D, K, probe_cap, qk.data_ptr(),
+            lane.data_ptr(), qocc.data_ptr(), cnt.data_ptr(), d_first.data_ptr(),
+            _build.ptr_array([o for row in pays for o in row]),
+            _build.stream_of(qk))
+    _build.check(code, "probe_walk")
+    probe_walk.launches += 1
+    return cnt, d_first, pays
+
+
+probe_walk.launches = 0
+
+
+def probe_lane_tables(tables: LaneTables, s: Table, key: str = "key"):
+    """Probe layout + walk-only probe. Returns (qk_p int64[u], spay_p
+    [int64[u]], cnt int32[u], d_first int32[u], inline_pays [K][npay]
+    int64[u], qocc int32[u], lane_p int32[u], overflow 0-d bool), all in
+    the padded [npart * probe_cap] probe order. tpq's inline payloads
+    are 32-bit planes; here npay counts int64 columns."""
+    qk_p, spay_p, lane_p, qocc, overflow = _probe_layout(tables.plan, s, key)
+    cnt, d_first, pays = probe_walk(tables, qk_p, lane_p, qocc)
+    return qk_p, spay_p, cnt, d_first, pays, qocc, lane_p, overflow
+
+
+# ---------------------------------------------------------------------------
+# emit, tail and the ok flag
+# ---------------------------------------------------------------------------
+
 def _splice_tail(cols, tables: LaneTables, cnt_eff, d_first, qk_p, spay_p,
                  lane_p, total_inline, out_capacity: int) -> None:
     """Append the matches past the K-th of every query after the inline
@@ -180,7 +306,10 @@ def _splice_tail(cols, tables: LaneTables, cnt_eff, d_first, qk_p, spay_p,
     plan = tables.plan
     K, D, dev = plan.inline_k, plan.depth, cnt_eff.device
     u = plan.npart * plan.probe_cap
-    tcap = plan.tail_rows_cap
+    # no more tail queries than queries: a one-partition plan over fewer
+    # than tail_rows_cap rows has u < tail_rows_cap (tpq's shapes
+    # disagree there)
+    tcap = min(plan.tail_rows_cap, u)
     window = min(plan.tail_out_cap + 2048, out_capacity)
 
     (tq,), n_t = pack([torch.arange(u, dtype=I32, device=dev)],

@@ -19,22 +19,24 @@ def hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     kernel (tpq_torch/kernels/lane2.py); falls back to the sorted impl
     when a static capacity is exceeded.
     impl="sorted": the union-sort engine (tpq_torch/ops/union_join.py).
-    impl="skew": not yet ported.
+    impl="skew": the heavy/light split for a skewed probe side
+    (tpq_torch/ops/skew_join.py).
     """
     if impl == "lane":
         from tpq_torch.kernels.lane2 import lane2_hash_join
 
         return lane2_hash_join(r, s, out_capacity, key=key,
                                probe_keep=probe_keep)
-    if impl == "skew":
-        raise NotImplementedError(
-            "impl='skew' is not yet ported (ROADMAP.md Queue 1 item 7)")
-    if impl != "sorted":
+    if impl not in ("sorted", "skew"):
         raise ValueError(f"unknown impl {impl!r}")
     if probe_keep is not None:
         raise NotImplementedError(
-            "probe_keep needs the filter operator's compact, not yet ported "
-            "(ROADMAP.md Queue 1 item 6)")
+            "probe_keep needs the filter operator's predicate front end and "
+            "pipeline, not yet ported (ROADMAP.md Queue 1 item 6)")
+    if impl == "skew":
+        from tpq_torch.ops.skew_join import skew_hash_join
+
+        return skew_hash_join(r, s, out_capacity, key=key)
 
     from tpq_torch.ops.union_join import union_join
 

@@ -2,9 +2,12 @@
 hash_join(impl="sorted") and the lane join's fallback.
 
   1. UNION SORT — the concatenated relations ordered stably by
-     (invalid, key, side). torch has no multi-key sort, so this is three
-     stable sorts, least-significant key first, composed into one
-     permutation that then gathers every column.
+     (invalid, key, side). sort_engine="lax": torch has no multi-key
+     sort, so this is three stable sorts, least-significant key first,
+     composed into one permutation that then gathers every column.
+     sort_engine="radix": tpq's LSD radix engine, one stable 1-bit split
+     (the split kernel, tpq_torch/kernels/radix_sort.py) per bit of
+     side, key and invalid, carrying every column as 32-bit planes.
   2. RUN STRUCTURE — equal keys form runs; R rows precede S rows within
      a run. Scans give the run-start index rs and the number m of R
      rows before each position of its run.
@@ -34,6 +37,7 @@ from tpq_torch.ops._expand import expand_segments, last_start
 I32 = torch.int32
 I64 = torch.int64
 M32 = 0xFFFFFFFF
+SIGN32 = 0x80000000
 DMAX = 2  # match ranks emitted inline; deeper runs go to the tail
 
 
@@ -74,16 +78,41 @@ def _stable_lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+def _radix_union_sort(inv, k, side, vals: dict, key_bits: int):
+    """The radix engine's union sort: LSD bit order side, key bits low
+    to high (the high plane sign-biased so unsigned bit order is signed
+    int64 order), invalid last; `key_bits` < 64 narrows the key passes
+    when the key domain is bounded. Returns (inv_s, k_s, side_s,
+    vals_s)."""
+    from tpq_torch.kernels.radix_sort import lsd_radix_sort_bits
+
+    k64 = k.to(I64)
+    # the bias in int64, masked: torch on the CPU has no uint32 xor
+    khi_b = (((k64 >> 32) & M32) ^ SIGN32).to(I32)
+    val_planes = {n: col_planes(v) for n, v in vals.items()}
+    planes = [inv, (k64 & M32).to(I32), khi_b, side,
+              *[p for ps in val_planes.values() for p in ps]]
+    nb = min(key_bits, 64)
+    specs = [(3, 0)]
+    specs += [(1, b) for b in range(min(nb, 32))]
+    specs += [(2, b) for b in range(max(0, nb - 32))]
+    specs.append((0, 0))
+    out = lsd_radix_sort_bits(planes, specs)
+    khi = (out[2].to(I64) & M32) ^ SIGN32
+    k_s = planes_col((out[1], khi), I64).to(k.dtype)
+    vals_s, pos = {}, 4
+    for n, ps in val_planes.items():
+        vals_s[n] = planes_col(tuple(out[pos:pos + len(ps)]), vals[n].dtype)
+        pos += len(ps)
+    return out[0], k_s, out[3], vals_s
+
+
 def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
-               sort_engine: str = "lax") -> Table:
+               sort_engine: str = "lax", key_bits: int = 64) -> Table:
     """Inner equi-join R ⋈ S on `key` (see module docstring). tpq's
     dmax and tail-cap arguments are fixed at their defaults: no caller
     sets them."""
-    if sort_engine == "radix":
-        raise NotImplementedError(
-            "sort_engine='radix' needs the LSD radix sort kernel, not yet "
-            "ported (ROADMAP.md Queue 1 item 8, Queue 2 kernel 6)")
-    if sort_engine != "lax":
+    if sort_engine not in ("lax", "radix"):
         raise ValueError(f"unknown sort_engine {sort_engine!r}")
     dev = r.device
     cr, cs = r.capacity, s.capacity
@@ -109,9 +138,13 @@ def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
         c = s.col(n)
         vals[f"s_{n}"] = torch.cat([torch.zeros(cr, dtype=c.dtype, device=dev), c])
 
-    perm = _stable_lexsort([inv, k, side])
-    inv_s, k_s, side_s = inv[perm], k[perm], side[perm]
-    vals_s = {n: v[perm] for n, v in vals.items()}
+    if sort_engine == "radix":
+        inv_s, k_s, side_s, vals_s = _radix_union_sort(inv, k, side, vals,
+                                                       key_bits)
+    else:
+        perm = _stable_lexsort([inv, k, side])
+        inv_s, k_s, side_s = inv[perm], k[perm], side[perm]
+        vals_s = {n: v[perm] for n, v in vals.items()}
 
     valid = inv_s == 0
     is_r = (side_s == 0) & valid
