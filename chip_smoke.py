@@ -33,9 +33,29 @@ Phases, one line each; any failure raises and exits non-zero:
                 beside the lax engine;
   7. fallback — an h2-colliding key pair clears the lane join's `ok`, and
                 all-equal keys the skew join's; each equals the sorted
-                join.
+                join;
+  8. dryrun   — tpq_torch.dist.dryrun_multichip(8) on the card: the
+                chunked+skew, ring+skew and dense+lane+skew variants, each
+                62,545 rows byte-equal to the C++ oracle; then the
+                dense+lane+skew variant through the process-group mesh as
+                a one-rank NCCL group (localhost), its rows equal to the
+                one-process mesh's;
+  9. config5  — dist_125m_8shard, eight shards on the card: the
+                histogram kernel at the arguments plan_dist_capacities
+                hands it (all 16 calls byte-equal to the plain version,
+                the first timed); dist_hash_join_planned(local_impl=
+                "lane") with every launch count zeroed just before and
+                read just after (the histogram twice per shard, PAD, PACK
+                and the fused walk/emit, nothing else), overflow zero,
+                num_rows equal to numpy's count, four key-range slices
+                byte-equal to the oracle; the join once more with every
+                call of those four kernels held, as it is made, byte-equal
+                to its plain version on the same inputs (the sizes past
+                2^31 that no CPU test reaches); the multiset checksum
+                equal to the single-card lane join's; end-to-end and
+                planning ms, peak memory.
 The line before the last is the kernels' JSON record: `launches` is the
-sum over the three paths of the launches in their one counted join, and
+sum over the four paths of the launches in their one counted join, and
 `launches_per_join` gives them path by path. The last line is
 {"ok": true, "device": {...}}.
 
@@ -73,31 +93,48 @@ def phase(name, msg):
 
 
 def max_abs_err(pairs) -> int:
-    """Largest |a - b| over tensor pairs (0 when byte-equal)."""
+    """Largest |a - b| over integer tensor pairs: 0 only when byte-equal
+    (the difference is taken in int64, not in a double, which would round
+    away small differences of 64-bit values; one past int64 wraps, but
+    never to 0)."""
     err = 0
     for a, b in pairs:
         check(a.dtype == b.dtype and a.shape == b.shape,
               f"dtype/shape {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
         if not torch.equal(a, b):
-            err = max(err, int((a.double() - b.double()).abs().max().item()))
+            d = (a.long() - b.long()).abs()
+            d = torch.where(d < 0, torch.iinfo(torch.int64).max, d)  # |INT64_MIN|
+            err = max(err, int(d.max()))
     return err
 
 
-def record_kernel_calls(run):
-    """Runs `run()` with the kernel wrappers of the ported paths replaced
-    by recorders; returns {wrapper name: [args, ...]} of what they
-    received (lsd_radix_sort_bits is recorded too, for its whole-sort
-    check)."""
-    from tpq_torch.kernels import lane2, lane_table, radix_sort
+def with_wrappers_replaced(run, replace):
+    """Runs `run()` with each kernel wrapper of the ported paths (and
+    lsd_radix_sort_bits, for its whole-sort check), as the modules of
+    the paths name it, replaced by replace(name, wrapper)."""
+    from tpq_torch.kernels import lane2, lane_table, radix_partition, radix_sort
     from tpq_torch.ops import filter as filter_op
     from tpq_torch.ops import skew_join
 
-    calls = {}
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
                (lane_table, "probe_walk"), (radix_sort, "_split1"),
-               (radix_sort, "lsd_radix_sort_bits")]
+               (radix_sort, "lsd_radix_sort_bits"),
+               (radix_partition, "radix_histogram")]
     saved = [getattr(m, n) for m, n in patched]
+    for (m, n), fn in zip(patched, saved):
+        setattr(m, n, replace(n, fn))
+    try:
+        run()
+    finally:
+        for (m, n), fn in zip(patched, saved):
+            setattr(m, n, fn)
+
+
+def record_kernel_calls(run):
+    """Runs `run()` with the kernel wrappers replaced by recorders;
+    returns {wrapper name: [args, ...]} of what they received."""
+    calls = {}
 
     def recorder(name, fn):
         # wraps copies `launches`: while patched, a wrapper's body counts
@@ -108,14 +145,66 @@ def record_kernel_calls(run):
             return fn(*args)
         return rec
 
-    for (m, n), fn in zip(patched, saved):
-        setattr(m, n, recorder(n, fn))
-    try:
-        run()
-    finally:
-        for (m, n), fn in zip(patched, saved):
-            setattr(m, n, fn)
+    with_wrappers_replaced(run, recorder)
     return calls
+
+
+def pad_err(args, got) -> int:
+    from tpq_torch.kernels.move import pad_ref
+
+    want = pad_ref(*args)
+    return max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+
+
+def pack_err(args, got) -> int:
+    from tpq_torch.kernels.move import pack_ref
+
+    want = pack_ref(*args)
+    return max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+
+
+def fused_err(args, got) -> int:
+    """Over cnt, d_first and the emitted rows (the slots past them are
+    unspecified)."""
+    from tpq_torch.kernels.lane2 import fused_walk_emit_ref
+
+    outs, cnt, d_first = got
+    routs, rcnt, rdf = fused_walk_emit_ref(*args)
+    n = min(int(cnt.clamp_max(args[0].plan.inline_k).sum()), args[-1])
+    return max_abs_err([(cnt, rcnt), (d_first, rdf)]
+                       + [(a[:n], b[:n]) for a, b in zip(outs, routs)])
+
+
+def hist_err(args, got) -> int:
+    from tpq_torch.kernels.radix_partition import radix_histogram_ref
+
+    return max_abs_err([(got, radix_histogram_ref(*args))])
+
+
+ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
+        "radix_histogram": hist_err}
+
+
+def hold_kernel_calls(run):
+    """Runs `run()` with every call of PAD, PACK, the fused walk/emit and
+    the histogram held, as it is made, against the plain version on the
+    same inputs; returns {name: (calls, largest max_abs_err)}."""
+    held = {}
+
+    def holder(name, fn):
+        if name not in ERRS:
+            return fn
+
+        @functools.wraps(fn)
+        def hold(*args):
+            got = fn(*args)
+            n, err = held.get(name, (0, 0))
+            held[name] = (n + 1, max(err, ERRS[name](args, got)))
+            return got
+        return hold
+
+    with_wrappers_replaced(run, holder)
+    return held
 
 
 def bound(nbytes: int, ops: int = 0):
@@ -174,8 +263,7 @@ def pad_phase(K, calls):
 
     for label, args in zip(("build", "probe", "tail window"), calls["pad"]):
         cols, dest, n_live, out_len = args
-        got, want = pad(*args), pad_ref(*args)
-        err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+        err = pad_err(args, pad(*args))
         n = dest.shape[0]
         live = ((torch.arange(n, device=dest.device) < n_live)
                 & (dest >= 0) & (dest < out_len))
@@ -200,8 +288,8 @@ def pack_phase(K, args, label, record):
     from tpq_torch.kernels.move import pack, pack_ref
 
     cols, occ = args
-    got, want = pack(*args), pack_ref(*args)
-    err = max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+    got = pack(*args)
+    err = pack_err(args, got)
     keep = occ != 0
     esz = sum(c.element_size() for c in cols)
     n, total = occ.shape[0], int(got[1])
@@ -216,11 +304,10 @@ def fused_phase(K, args, label, record):
 
     tables, qk, lane, qocc, spays, cap = args
     plan = tables.plan
-    (outs, cnt, d_first), (routs, rcnt, rdf) = (fused_walk_emit(*args),
-                                                 fused_walk_emit_ref(*args))
+    got = fused_walk_emit(*args)
+    err = fused_err(args, got)
+    cnt = got[1]
     n = min(int(cnt.clamp_max(plan.inline_k).sum()), cap)
-    err = max_abs_err([(cnt, rcnt), (d_first, rdf)]
-                      + [(a[:n], b[:n]) for a, b in zip(outs, routs)])
     u = qk.shape[0]
     nr, ns = len(tables.pays), len(spays)
     matched = int(((cnt > 0) & (qocc > 0)).sum())
@@ -337,7 +424,28 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     calls = record_kernel_calls(
         lambda: merge_join(r1, s1, cap1, sort_engine="radix"))
     split_phase(K, calls)
-    return K.rec
+    return K
+
+
+def hist_phase(K, calls, nshards):
+    from tpq_torch.kernels import radix_partition as rp
+
+    hist_calls = calls["radix_histogram"]
+    check(len(hist_calls) == 2 * nshards,
+          f"{len(hist_calls)} histogram calls in the planner, expected {2 * nshards}")
+    err = max(hist_err(a, rp.radix_histogram(*a)) for a in hist_calls)
+    args = hist_calls[0]  # shard 0, R's destinations
+    ids, nb = args
+    n = ids.shape[0]
+
+    def library():
+        return torch.bincount(torch.where((ids >= 0) & (ids < nb), ids, nb),
+                              minlength=nb + 1)[:nb]
+
+    K.hold("radix_histogram", f"planner, shard 0 of R: {n} ids into {nb} buckets "
+                              f"(all {len(hist_calls)} calls checked)",
+           lambda: rp.radix_histogram(*args), lambda: rp.radix_histogram_ref(*args),
+           5, err, n * 4 + nb * 4, library=library)
 
 
 def oracle_rows(r_np, s_np, algo="hash"):
@@ -361,10 +469,9 @@ def oracle_rows(r_np, s_np, algo="hash"):
 
 
 def relations_np(cfg):
-    from tpq_torch import datagen
+    from tpq_torch.bench.runner import gen_np
 
-    return [datagen.gen_relation_np(x.rows, x.nkeys, x.payloads, x.seed, x.kind,
-                                    x.theta) for x in (cfg.r, cfg.s)]
+    return gen_np(cfg.r), gen_np(cfg.s)
 
 
 def true_rows(cfg, r_np, s_np) -> int:
@@ -377,10 +484,12 @@ def wrappers():
     from tpq_torch.kernels.lane2 import fused_walk_emit
     from tpq_torch.kernels.lane_table import probe_walk
     from tpq_torch.kernels.move import pack, pad
+    from tpq_torch.kernels.radix_partition import radix_histogram
     from tpq_torch.kernels.radix_sort import _split1
 
     return {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit,
-            "probe_walk": probe_walk, "split1": _split1}
+            "probe_walk": probe_walk, "split1": _split1,
+            "radix_histogram": radix_histogram}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -502,6 +611,182 @@ def fallback_phase(dev):
                       "(65536 rows)")
 
 
+def canon(cols: dict) -> dict:
+    """Canonical (lexicographic) row order of host columns."""
+    order = np.lexsort(tuple(cols[n] for n in reversed(list(cols))))
+    return {n: c[order] for n, c in cols.items()}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def dryrun_phase(dev):
+    import torch.distributed as dist
+
+    from tpq_torch.columnar import tables_equal
+    from tpq_torch.dist import (DRYRUN_VARIANTS, dryrun_multichip, dryrun_relations,
+                                make_mesh, multihost, run_dryrun)
+
+    out = dryrun_multichip(8, device=dev)
+    r, s, expected = dryrun_relations()
+    check(expected == 62_545, f"the dryrun relations join to {expected} rows")
+    want = oracle_rows(r, s)
+    for name, (res, retries) in out.items():
+        got = canon(res.to_numpy())
+        check(len(got["key"]) == expected, f"{name}: {len(got['key'])} rows")
+        check(tables_equal(got, want), f"{name}: rows differ from the C++ oracle")
+        phase("dryrun", f"{name}: {expected} rows over 8 shards after {retries} "
+                        f"retries, byte-equal to the C++ oracle")
+
+    name = "dense+lane+skew"
+    variant = {name: DRYRUN_VARIANTS[name]}
+    check(multihost.init(f"localhost:{free_port()}", 1, 0, device=dev),
+          "no process group initialized")
+    try:
+        pg = multihost.ProcessGroupMesh(device=dev)
+        (res, _), = run_dryrun(pg, variant).values()
+    finally:
+        dist.destroy_process_group()
+    got = res.to_numpy()
+    check(tables_equal(canon(got), canon(out[name][0].to_numpy())),
+          "the one-rank NCCL mesh's rows differ from the 8-shard one-process mesh's")
+    (one, _), = run_dryrun(make_mesh(1, dev), variant).values()
+    check(tables_equal(got, one.to_numpy()),
+          "the one-rank NCCL mesh's rows differ from the 1-shard one-process mesh's")
+    phase("dryrun", f"{name} through a one-rank NCCL process group: rows equal to "
+                    f"the 8-shard one-process mesh's, and row for row to the "
+                    f"1-shard one's")
+
+
+def config5_phase(dev, K, cfg):
+    """The distributed join at dist_125m_8shard; returns its launches."""
+    from tpq_torch import Table
+    from tpq_torch.bench.runner import cuda_time
+    from tpq_torch.columnar import next_pow2, tables_equal
+    from tpq_torch.dist import (DistTable, dist_hash_join_planned, make_mesh,
+                                plan_dist_capacities)
+    from tpq_torch.kernels.lane2 import lane2_hash_join, lane2_path_taken, plan_lane2
+    from tpq_torch.kernels.lane_table import plan_pressure
+    from tpq_torch.verify import M64, multiset_checksum, sample_key_ranges, slice_by_key
+
+    t0 = time.perf_counter()
+    r_np, s_np = relations_np(cfg)
+    mesh = make_mesh(cfg.mesh_shape[0], dev)
+    R, S = DistTable.from_numpy(r_np, mesh), DistTable.from_numpy(s_np, mesh)
+    cnt_r = np.bincount(r_np["key"], minlength=cfg.r.nkeys).astype(np.int64)
+    cnt_s = np.bincount(s_np["key"], minlength=cfg.r.nkeys).astype(np.int64)
+    n = int((cnt_r * cnt_s).sum())
+    phase("config5", f"{cfg.name}: R and S of {cfg.r.rows} rows on {mesh.size} "
+                     f"shards of capacity {R.local_capacity}, {n} join rows by numpy "
+                     f"({time.perf_counter() - t0:.1f} s to generate and place)")
+
+    hist_phase(K, record_kernel_calls(lambda: plan_dist_capacities(R, S, mesh)),
+               mesh.size)
+    ex_cap, out_cap = plan_dist_capacities(R, S, mesh)
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, ovf = dist_hash_join_planned(R, S, mesh, local_impl="lane")
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: w.launches for k, w in ws.items()}
+    phase("config5", f"one planned join (ex_cap {ex_cap}, out_cap {out_cap} per "
+                     f"shard): launches {launches}; peak memory {peak} B")
+    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit"}
+    check(all((v > 0) == (k in expect) for k, v in launches.items()),
+          f"expected launches of exactly {sorted(expect)}: {launches}")
+    check(launches["radix_histogram"] == 2 * mesh.size,
+          f"{launches['radix_histogram']} histogram launches, expected {2 * mesh.size}")
+    check(int(ovf.sum()) == 0, f"overflow {ovf.tolist()}")
+    got = int(out.shard_rows.sum())
+    check(got == n, f"num_rows {got} != numpy's {n}")
+
+    ranges, sizes = sample_key_ranges(r_np["key"]), []
+    for lo, hi in ranges:
+        parts = []
+        for t in out.shards:
+            k = t.col("key")
+            m = t.valid_mask() & (k >= lo) & (k < hi)
+            parts.append({c: v[m].cpu().numpy() for c, v in t.columns.items()})
+        mine = canon({c: np.concatenate([p[c] for p in parts]) for c in parts[0]})
+        want = oracle_rows(slice_by_key(r_np, lo, hi), slice_by_key(s_np, lo, hi))
+        check(tables_equal(mine, want), f"key range [{lo}, {hi}) differs from the oracle")
+        sizes.append(len(want["key"]))
+    check(len(ranges) == 4, f"{len(ranges)} key ranges sampled")
+    phase("config5", f"overflow 0; num_rows {n} == numpy count; 4 key ranges "
+                     f"({', '.join(map(str, sizes))} output rows) byte-equal to the "
+                     f"C++ oracle")
+
+    ck_dist = sum(int(multiset_checksum(t)) for t in out.shards) & M64
+    del out
+
+    # the same join once more, every kernel call held as it is made
+    # against its plain version on the same inputs (the build PAD of
+    # 33.5M rows, the walk/emit over u 50,331,648 queries of D 48)
+    t0 = time.perf_counter()
+    held = hold_kernel_calls(
+        lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"))
+    for name, (calls, err) in held.items():
+        check(calls == launches[name], f"{name}: {calls} calls held, "
+                                       f"{launches[name]} launched")
+        check(err == 0, f"{name} differs from its plain version at the dist path's "
+                        f"arguments (max_abs_err {err})")
+    check(set(held) == expect, f"held {sorted(held)}")
+    torch.cuda.empty_cache()
+    phase("config5", "every kernel call of a planned join byte-equal to its plain "
+                     "version: " + ", ".join(f"{k} {c}" for k, (c, _) in held.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+
+    t_join = cuda_time(lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"),
+                       dev, 3)[0] * 1e3
+    t_plan = cuda_time(lambda: plan_dist_capacities(R, S, mesh), dev, 3)[0] * 1e3
+    phase("config5", f"end_to_end {t_join:.4f} ms per planned join (planning "
+                     f"{t_plan:.4f} ms of it), mean of 3 after a warm-up; "
+                     f"{n / (t_join / 1e3):.6e} join rows/s")
+    del R, S
+
+    # the single-card lane join of the same relations. Its output
+    # capacity is twice the pow2 above the count, because the plan's tail
+    # window (1/256 of it) must hold the rows past K = 4 matches; its
+    # depth is the renegotiation loop's first step from 48, 72, because
+    # at 48 some buckets of a 2^27-row build overflow and the join would
+    # answer through its sorted fallback. Both counts are printed.
+    torch.cuda.empty_cache()
+    R1 = Table.from_numpy(r_np, device=dev)
+    S1 = Table.from_numpy(s_np, device=dev)
+    cap1 = 2 * next_pow2(n)
+    plan0 = plan_lane2(R1.capacity, S1.capacity, out_capacity=next_pow2(n))
+    plan = plan_lane2(R1.capacity, S1.capacity, depth=72, out_capacity=cap1)
+    load, tail = plan_pressure(R1, S1, plan0)
+    phase("config5", f"single card: {int((load > plan0.depth).sum())} of "
+                     f"{plan0.nbuckets} buckets hold more than {plan0.depth} build rows "
+                     f"(fullest {int(load.max())}); {int(tail)} tail rows against "
+                     f"windows of {plan0.tail_out_cap} (out capacity {next_pow2(n)}) "
+                     f"and {plan.tail_out_cap} ({cap1})")
+    del load
+    check(bool(lane2_path_taken(R1, S1, cap1, plan=plan)),
+          "the single-card lane join fell back")
+    one = lane2_hash_join(R1, S1, cap1, plan=plan)
+    check(int(one.num_rows) == n, f"single-card num_rows {int(one.num_rows)}")
+    ck_one = int(multiset_checksum(one)) & M64
+    check(ck_dist == ck_one, f"checksums differ: dist {ck_dist:#x}, "
+                             f"single card {ck_one:#x}")
+    del one
+    t_one = cuda_time(lambda: lane2_hash_join(R1, S1, cap1, plan=plan), dev, 2)[0] * 1e3
+    phase("config5", f"multiset checksum {ck_dist:#018x} equal to the single-card "
+                     f"lane join's (npart {plan.npart}, D {plan.depth}, out capacity "
+                     f"{cap1}; {t_one:.4f} ms per join, mean of 2 after a warm-up)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this check runs only on a card")
@@ -528,11 +813,14 @@ def main():
     phase("device", f"measured copy rate {hbm_bw:.1f} GB/s")
 
     cfg1, cfg3 = PRESETS["single_chip_1m"], PRESETS["zipf_skew"]
-    records = kernel_phase(dev, cfg1, cfg3, hbm_bw)
+    K = kernel_phase(dev, cfg1, cfg3, hbm_bw)
     per_join = {"config1": config1_phase(dev, cfg1, hbm_bw),
                 "config3": config3_phase(dev, cfg3, hbm_bw),
                 "merge": merge_phase(dev, cfg1, hbm_bw)}
     fallback_phase(dev)
+    dryrun_phase(dev)
+    per_join["dist"] = config5_phase(dev, K, PRESETS["dist_125m_8shard"])
+    records = K.rec
 
     meta = {
         "pad": ("tpq_torch/csrc/move.cu", "tpq/kernels/move.py:117"),
@@ -540,6 +828,8 @@ def main():
         "fused_walk_emit": ("tpq_torch/csrc/lane2.cu", "tpq/kernels/lane2.py:223"),
         "probe_walk": ("tpq_torch/csrc/lane2.cu", "tpq/kernels/lane_table.py:293"),
         "split1": ("tpq_torch/csrc/radix_sort.cu", "tpq/kernels/radix_sort.py:140"),
+        "radix_histogram": ("tpq_torch/csrc/radix_partition.cu",
+                            "tpq/kernels/radix_partition.py:48"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -141,3 +141,20 @@ def test_import_leaves_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("runs", ["long", "singletons", "mixed"])
+def test_last_start_matches_numpy(runs):
+    """The run start of every position: one long run (a padding suffix),
+    all singletons (union_join's invalid rows), and random runs."""
+    from tpq_torch.ops._expand import last_start
+
+    n = 5000
+    rng = np.random.default_rng(3)
+    is_start = {"long": np.arange(n) % 4000 == 0, "singletons": np.ones(n, bool),
+                "mixed": rng.random(n) < 0.2}[runs]
+    is_start[0] = True
+    want = np.maximum.accumulate(np.where(is_start, np.arange(n), 0))
+    got = last_start(torch.from_numpy(is_start))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)

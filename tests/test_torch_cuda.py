@@ -13,12 +13,14 @@ import torch
 
 from tpq_torch import Table, datagen
 from tpq_torch.columnar import canonicalize, tables_equal
+from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh, run_dryrun
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, plan_lane2)
 from tpq_torch.kernels.lane_table import (LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
                                           probe_walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
+from tpq_torch.kernels.radix_partition import radix_histogram, radix_histogram_ref
 from tpq_torch.kernels.radix_sort import _split1, split1_ref
 from tpq_torch.ops import hash_join, merge_join
 
@@ -183,6 +185,45 @@ def test_skew_join_on_card_matches_cpu(dev):
                        Table.from_numpy(s, device="cpu"), 1 << 18, impl="skew")
     assert int(on_card.num_rows) == int(on_cpu.num_rows)
     assert tables_equal(canonicalize(on_card), canonicalize(on_cpu))
+
+
+@pytest.mark.parametrize("nbuckets", [9, 64, 4096])
+@pytest.mark.parametrize("n", [256 * 4096, 100_003, 1])
+def test_radix_histogram_matches_plain(dev, n, nbuckets):
+    """n a multiple of the 256-thread block and not; ids below 0, at the
+    sentinel nbuckets and past it are ignored; at nbuckets 9 one bucket
+    takes a third of the ids (the planner's contention)."""
+    rng = np.random.default_rng(n + nbuckets)
+    ids = rng.integers(-5, nbuckets + 5, n).astype(np.int32)
+    ids[::3] = nbuckets // 2
+    ids = torch.from_numpy(ids).to(dev)
+    before = radix_histogram.launches
+    got = radix_histogram(ids, nbuckets)
+    assert radix_histogram.launches == before + 1
+    _eq(got, radix_histogram_ref(ids, nbuckets))
+    _eq(radix_histogram(ids, nbuckets), got)  # integer atomics: same bytes
+
+
+def test_dist_join_on_card_matches_cpu(dev):
+    """The one-process 8-shard mesh on the card against the same join on
+    the CPU, shard by shard: the planned lane join on uniform keys (two
+    histogram launches per shard) and the dryrun's skew variants."""
+    r = datagen.gen_relation_np(60_000, 60_000, payloads=1, seed=1)
+    s = datagen.gen_relation_np(60_000, 60_000, payloads=2, seed=2)
+    outs = {}
+    for d in (dev, "cpu"):
+        mesh = make_mesh(8, d)
+        R, S = DistTable.from_numpy(r, mesh), DistTable.from_numpy(s, mesh)
+        before = radix_histogram.launches
+        out, ovf = dist_hash_join_planned(R, S, mesh, local_impl="lane")
+        assert radix_histogram.launches == before + (16 if d == dev else 0)
+        assert int(ovf.sum()) == 0
+        outs[str(d)] = [out.shards_numpy()] + [
+            res.shards_numpy() for res, _ in run_dryrun(mesh).values()]
+    for card, cpu in zip(outs[str(dev)], outs["cpu"]):
+        for a, b in zip(card, cpu):  # each shard holds the same rows
+            a, b = (Table.from_numpy(x, device="cpu") for x in (a, b))
+            assert tables_equal(canonicalize(a), canonicalize(b))
 
 
 def test_radix_merge_on_card_matches_cpu(dev):

@@ -22,7 +22,8 @@ from tpq_torch.columnar import canonicalize
 from tpq_torch.config import PRESETS
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_probe_emit2,
                                      lane2_path_taken, plan_lane2)
-from tpq_torch.kernels.lane_table import LanePlan, lane_tables_from_numpy
+from tpq_torch.kernels.lane_table import (LanePlan, lane_tables_from_numpy,
+                                          plan_pressure)
 from tpq_torch.ops import hash_join
 from tpq_torch.ops.union_join import col_planes
 
@@ -95,6 +96,21 @@ def test_build_matches_tpq(tpq_lane):
     assert len(ours) == len(theirs) == 6
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a.numpy()[live], b.view(np.int32)[live])
+
+
+def test_plan_pressure_matches_tpq_build(tpq_lane):
+    """The bucket loads are tpq's bucket lengths wherever they fit D, and
+    the tail is numpy's count of the matches past the K-th."""
+    plan = tpq_lane["plan"]
+    r = Table.from_numpy(R_NP, device="cpu")
+    s = Table.from_numpy(S_NP, device="cpu")
+    load, tail = plan_pressure(r, s, plan)
+    assert int(load.sum()) == len(R_NP["key"])
+    np.testing.assert_array_equal(load.clamp_max(plan.depth).numpy(),
+                                  tpq_lane["occ"].sum(1).reshape(-1))
+    cnt_r = np.bincount(R_NP["key"], minlength=300)
+    want = np.maximum(cnt_r[S_NP["key"]] - plan.inline_k, 0).sum()
+    assert want > 0 and int(tail) == want
 
 
 def test_fused_walk_emit_on_tpq_tables(tpq_lane):

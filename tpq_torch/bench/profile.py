@@ -10,6 +10,9 @@ CLI (needs a card), with the bench runner's preset and join options:
   python -m tpq_torch.bench.profile --config=zipf_skew
   python -m tpq_torch.bench.profile --config=single_chip_1m --algo=merge \\
       --sort-engine=radix
+  python -m tpq_torch.bench.profile --config=dist_125m_8shard
+(a preset with a mesh shape runs dist_hash_join_planned(local_impl=
+"lane") on a one-process mesh of that many shards on the card)
 prints one JSON object: end-to-end ms per join, device busy ms per join,
 the device's idle share of the join (1 - busy / end to end), device
 activities per join and the TOP largest device items by name, each with
@@ -24,7 +27,8 @@ import sys
 import torch
 
 from tpq_torch.bench.runner import (add_join_args, card_info, config_from_args,
-                                    cuda_time, gen, join_fn, out_capacity_for)
+                                    cuda_time, gen, gen_np, join_fn,
+                                    out_capacity_for)
 
 JOINS = 10
 TOP = 12
@@ -75,6 +79,17 @@ def profile_join(fn, device) -> dict:
     }
 
 
+def dist_join_fn(cfg, device):
+    """The planned lane dist join of a mesh preset, on a one-process mesh
+    of cfg.mesh_shape[0] shards on `device`."""
+    from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh
+
+    mesh = make_mesh(cfg.mesh_shape[0], device)
+    R, S = (DistTable.from_numpy(gen_np(x), mesh) for x in (cfg.r, cfg.s))
+    return (lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"),
+            f"dist_hash_join_planned(local_impl='lane') on {mesh}")
+
+
 def main(argv=None):
     import argparse
 
@@ -86,12 +101,16 @@ def main(argv=None):
 
     cfg = config_from_args(args)
     dev = torch.device("cuda")
-    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
-    j = cfg.join
-    what = (f"hash_join(impl={j.impl!r})" if j.algo == "hash"
-            else f"merge_join(sort_engine={j.sort_engine!r})")
+    if cfg.mesh_shape:
+        fn, what = dist_join_fn(cfg, dev)
+    else:
+        r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+        j = cfg.join
+        what = (f"hash_join(impl={j.impl!r})" if j.algo == "hash"
+                else f"merge_join(sort_engine={j.sort_engine!r})")
+        fn = join_fn(cfg, r, s, out_capacity_for(cfg))
     report = {"config": cfg.name, "join": what, "card": card_info(),
-              **profile_join(join_fn(cfg, r, s, out_capacity_for(cfg)), dev)}
+              **profile_join(fn, dev)}
     print(json.dumps(report))
     return report
 

@@ -31,9 +31,14 @@ from tpq_torch.ops import hash_join, merge_join
 METRIC = "hash_join_probe_rows_per_sec_1chip_torch"
 
 
+def gen_np(spec: RelationSpec) -> dict:
+    """The relation a spec names, as host columns."""
+    return datagen.gen_relation_np(spec.rows, spec.nkeys, spec.payloads, spec.seed,
+                                   spec.kind, spec.theta)
+
+
 def gen(spec: RelationSpec, device) -> Table:
-    return datagen.gen_relation(spec.rows, spec.nkeys, spec.payloads, spec.seed,
-                                spec.kind, spec.theta, device=device)
+    return Table.from_numpy(gen_np(spec), device=device)
 
 
 def out_capacity_for(cfg: BenchConfig) -> int:

@@ -104,6 +104,13 @@ _register(_c(
     mesh_shape=(8,),
 ))
 
+# config 5 cut to one of its eight hosts' share: R and S at 125M rows and
+# nkeys 125M (1B / 8), shapes unchanged (int64 key, one int64 payload,
+# uniform keys, rows/nkeys = 1); all eight shards held on one card
+_register(replace(PRESETS["dist_1b"], name="dist_125m_8shard",
+                  r=RelationSpec(rows=125_000_000, nkeys=125_000_000, payloads=1, seed=1),
+                  s=RelationSpec(rows=125_000_000, nkeys=125_000_000, payloads=1, seed=2)))
+
 # smoke-scale twins (1/1000 scale)
 _register(replace(PRESETS["single_chip_1m"], name="smoke_1k",
                   r=RelationSpec(rows=1024, nkeys=1024, seed=1),

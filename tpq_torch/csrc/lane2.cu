@@ -69,7 +69,14 @@ __device__ __forceinline__ void stage_tile(int64_t* s_key, int32_t* s_blen,
   __syncthreads();
 }
 
-// grid (chunks per partition, npart)
+// The grid is 1-D, one CTA per (partition, chunk) in partition-major
+// order: gridDim.y stops at 65,535, and a 2^27-row build plans 65,536
+// partitions. Returns the partition and the CTA's first query in it.
+__device__ __forceinline__ int2 cta_chunk(int probe_cap) {
+  const int chunks = (probe_cap + kChunk - 1) / kChunk;
+  return make_int2(int(blockIdx.x / chunks), int(blockIdx.x % chunks) * kChunk);
+}
+
 __global__ void walk_kernel(const int64_t* __restrict__ t_key,
                             const int32_t* __restrict__ blen,
                             const int64_t* __restrict__ qk,
@@ -81,12 +88,13 @@ __global__ void walk_kernel(const int64_t* __restrict__ t_key,
   extern __shared__ int64_t s_key[];
   __shared__ int32_t s_blen[kLanes];
   __shared__ int32_t warp_sums[32];
-  const int p = blockIdx.y;
+  const int2 pc = cta_chunk(probe_cap);
+  const int p = pc.x;
   stage_tile(s_key, s_blen, t_key, blen, p, D);
 
   int32_t rows = 0;
   for (int it = 0; it < kChunk / kThreads; it++) {
-    const int qi = blockIdx.x * kChunk + it * kThreads + threadIdx.x;
+    const int qi = pc.y + it * kThreads + threadIdx.x;
     if (qi >= probe_cap) break;
     const int64_t q = int64_t(p) * probe_cap + qi;
     int c = 0, df = -1;
@@ -107,7 +115,7 @@ __global__ void walk_kernel(const int64_t* __restrict__ t_key,
   }
   int32_t total;
   block_exclusive_scan(rows, warp_sums, &total);
-  if (threadIdx.x == 0) block_rows[blockIdx.y * gridDim.x + blockIdx.x] = total;
+  if (threadIdx.x == 0) block_rows[blockIdx.x] = total;
 }
 
 constexpr int kMaxK = 8;  // MAX_K in tpq_torch/kernels/lane_table.py
@@ -118,7 +126,6 @@ struct ProbeCols {
   int n;
 };
 
-// grid (chunks per partition, npart)
 __global__ void probe_walk_kernel(const int64_t* __restrict__ t_key,
                                   const int32_t* __restrict__ blen,
                                   const int64_t* __restrict__ qk,
@@ -130,11 +137,12 @@ __global__ void probe_walk_kernel(const int64_t* __restrict__ t_key,
                                   ProbeCols cols) {
   extern __shared__ int64_t s_key[];
   __shared__ int32_t s_blen[kLanes];
-  const int p = blockIdx.y;
+  const int2 pc = cta_chunk(probe_cap);
+  const int p = pc.x;
   stage_tile(s_key, s_blen, t_key, blen, p, D);
 
   for (int it = 0; it < kChunk / kThreads; it++) {
-    const int qi = blockIdx.x * kChunk + it * kThreads + threadIdx.x;
+    const int qi = pc.y + it * kThreads + threadIdx.x;
     if (qi >= probe_cap) break;
     const int64_t q = int64_t(p) * probe_cap + qi;
     int c = 0, df = -1;
@@ -173,12 +181,13 @@ __global__ void emit_kernel(const int64_t* __restrict__ t_key,
   extern __shared__ int64_t s_key[];
   __shared__ int32_t s_blen[kLanes];
   __shared__ int32_t warp_sums[32];
-  const int p = blockIdx.y;
+  const int2 pc = cta_chunk(probe_cap);
+  const int p = pc.x;
   stage_tile(s_key, s_blen, t_key, blen, p, D);
 
-  int64_t run = block_offsets[blockIdx.y * gridDim.x + blockIdx.x];
+  int64_t run = block_offsets[blockIdx.x];
   for (int it = 0; it < kChunk / kThreads; it++) {
-    const int qi = blockIdx.x * kChunk + it * kThreads + threadIdx.x;
+    const int qi = pc.y + it * kThreads + threadIdx.x;
     const int64_t q = int64_t(p) * probe_cap + qi;
     const int c = qi < probe_cap ? min(cnt[q], K) : 0;
     int32_t chunk;
@@ -232,7 +241,7 @@ int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
   cudaFuncSetAttribute(emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        int(smem));
   const int chunks = (probe_cap + kChunk - 1) / kChunk;
-  const dim3 grid(chunks, npart);
+  const unsigned grid = unsigned(int64_t(chunks) * npart);
   walk_kernel<<<grid, kThreads, smem, stream>>>(t_key, blen, qk, lane, qocc, D,
                                                 K, probe_cap, cnt, dfirst,
                                                 block_rows);
@@ -260,7 +269,8 @@ int tpq_probe_walk(const int64_t* t_key, const int64_t* const* t_pays,
   const size_t smem = size_t(D) * kLanes * sizeof(int64_t);
   cudaFuncSetAttribute(probe_walk_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  const dim3 grid((probe_cap + kChunk - 1) / kChunk, npart);
+  const unsigned grid =
+      unsigned(int64_t((probe_cap + kChunk - 1) / kChunk) * npart);
   probe_walk_kernel<<<grid, kThreads, smem, stream>>>(
       t_key, blen, qk, lane, qocc, D, K, probe_cap, cnt, dfirst, cols);
   return int(cudaGetLastError());

@@ -37,6 +37,7 @@ _SIGNATURES = {
                       P, P, P, I64, P, P, P, P],
     "tpq_probe_walk": [P, P, I32, P, I32, I32, I32, I32, P, P, P, P, P, P, P],
     "tpq_split1": [P, P, I32, P, I64, P, P, P, P],
+    "tpq_radix_histogram": [P, I64, I32, P, P],
     "tpq_copy": [P, P, I64, P],
 }
 

@@ -148,6 +148,20 @@ def build_lane_tables(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
                       ok=~overflow & ~hazard)
 
 
+def plan_pressure(r: Table, s: Table, plan: LanePlan, key: str = "key"):
+    """What a relation pair asks of a plan's static capacities, before any
+    join. Returns (load int64[nbuckets]: build rows per bucket, more than
+    D overflow it; tail 0-d int64: the matches past the K-th of every
+    probe row, which the tail window of tail_out_cap rows must hold)."""
+    rk = _as_i64(r.col(key))[r.valid_mask()]
+    load = torch.bincount(hash_keys(rk, plan.pbits + 7, SALT_LANE).to(I64),
+                          minlength=plan.nbuckets)
+    rs = torch.sort(rk).values
+    sk = _as_i64(s.col(key))[s.valid_mask()]
+    cnt = torch.searchsorted(rs, sk, right=True) - torch.searchsorted(rs, sk)
+    return load, (cnt - plan.inline_k).clamp_min(0).sum()
+
+
 def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
     """Group the queries by partition (one stable sort) and PAD them to
     the [npart * probe_cap] layout. `keep` (bool[capacity], optional) is

@@ -14,8 +14,8 @@
 
 The planes stay tpq's 32-bit planes: the union-sort engine's radix
 branch carries its int64 columns as (lo, hi) pairs so that a pass moves
-int32 rows. msd_partition comes with radix_partition.py, the
-distributed join's module.
+int32 rows. msd_partition partitions by the top key bits through
+radix_partition.partition_padded.
 """
 
 from __future__ import annotations
@@ -134,3 +134,20 @@ def sort_rows(t: Table, key: str = "key") -> Table:
     cols = {key: ks}
     cols.update({n: t.col(n)[perm] for n in t.names if n != key})
     return Table(cols, t.num_rows)
+
+
+def msd_partition(keys: torch.Tensor, num_valid, bits: int, part_cap: int):
+    """Partition rows by the TOP `bits` of the (sign-biased) key: output
+    partitions are contiguous, ordered key ranges (MSD radix). Returns
+    (rowid2d [2^bits, part_cap], valid2d, overflow). tpq biases in
+    uint64; torch on the CPU has no uint64 shift, so the top bits come
+    from an int64 shift, masked, with the sign bit flipped after."""
+    from tpq_torch.kernels.radix_partition import partition_padded
+
+    npart = 1 << bits
+    k = keys.to(I64)
+    bucket = ((k >> (64 - bits)) & (npart - 1)) ^ (npart >> 1)
+    live = torch.arange(k.shape[0], device=k.device) < num_valid
+    bucket = torch.where(live, bucket, npart).to(I32)
+    rowid2d, valid2d, _, overflow = partition_padded(bucket, npart, part_cap)
+    return rowid2d, valid2d, overflow

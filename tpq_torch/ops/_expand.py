@@ -24,11 +24,16 @@ def last_start(is_start: torch.Tensor) -> torch.Tensor:
     position (is_start[0] must be True): tpq's cummax of run-start
     indices. torch.cummax also computes arg-indices and took 2.8 ms at
     1M rows on an H100 80GB HBM3 (PERF.md); a run id from cumsum and a
-    scatter-max of the starts (order-free, so deterministic) replace it."""
+    scatter of the starts replace it. Each start writes its run's slot
+    and every other row a slot of its own past the runs, so no two
+    writes meet (a scatter-max over the run ids serialized a long run on
+    one address: 14.7 ms for the 18M padding rows of a 2^25-row table on
+    an H100 80GB HBM3, PERF.md)."""
+    n = is_start.shape[0]
     run = torch.cumsum(is_start, 0) - 1
-    i = torch.arange(is_start.shape[0], device=is_start.device)
-    starts = torch.full_like(i, -1).scatter_reduce_(
-        0, run, torch.where(is_start, i, -1), "amax")
+    i = torch.arange(n, device=is_start.device)
+    starts = torch.empty(2 * n, dtype=i.dtype, device=i.device)
+    starts.scatter_(0, torch.where(is_start, run, n + i), i)
     return starts[run]
 
 
