@@ -9,7 +9,10 @@ Phases, one line each; any failure raises and exits non-zero:
   3. kernels  — every kernel on the very arguments its paths hand it,
                 byte-equal to its plain torch version and timed beside
                 it and, where one exists, beside the one PyTorch call
-                that computes the same function: PAD, PACK and the fused
+                that computes the same function; each kernel twice: back
+                to back (`ms`, host and card together) and on the card
+                alone (`device_ms`, calls queued behind a spin of the
+                stream so that the host runs ahead): PAD, PACK and the fused
                 walk/emit at config 1; the walk-only probe at config 3's
                 membership and at config 1's tables (one payload); the
                 fused walk/emit at config 3's heavy mini table; the
@@ -51,7 +54,9 @@ Phases, one line each; any failure raises and exits non-zero:
                 byte-equal to the oracle; the join once more with every
                 call of those four kernels held, as it is made, byte-equal
                 to its plain version on the same inputs (the sizes past
-                2^31 that no CPU test reaches); the multiset checksum
+                2^31 that no CPU test reaches); PAD and PACK timed at
+                their largest call of that join (`config5_largest` in
+                their records); the multiset checksum
                 equal to the single-card lane join's; end-to-end and
                 planning ms, peak memory.
 The line before the last is the kernels' JSON record: `launches` is the
@@ -188,8 +193,11 @@ ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
 def hold_kernel_calls(run):
     """Runs `run()` with every call of PAD, PACK, the fused walk/emit and
     the histogram held, as it is made, against the plain version on the
-    same inputs; returns {name: (calls, largest max_abs_err)}."""
-    held = {}
+    same inputs. Returns ({name: (calls, largest max_abs_err)}, {"pad" and
+    "pack": the arguments of their largest call})."""
+    from tpq_torch.bench.move_ab import size
+
+    held, largest = {}, {}
 
     def holder(name, fn):
         if name not in ERRS:
@@ -200,11 +208,14 @@ def hold_kernel_calls(run):
             got = fn(*args)
             n, err = held.get(name, (0, 0))
             held[name] = (n + 1, max(err, ERRS[name](args, got)))
+            if name in ("pad", "pack") and (name not in largest or size(
+                    name, args) > size(name, largest[name])):
+                largest[name] = args
             return got
         return hold
 
     with_wrappers_replaced(run, holder)
-    return held
+    return held, largest
 
 
 def bound(nbytes: int, ops: int = 0):
@@ -226,13 +237,20 @@ class Kernels:
     """Collects each kernel's record for the JSON line."""
 
     def __init__(self, dev, hbm_bw, iters=20):
-        from tpq_torch.bench.runner import cuda_time
+        from tpq_torch.bench.runner import cuda_time, device_time
 
-        self.dev, self.hbm_bw, self.iters, self.cuda_time = dev, hbm_bw, iters, cuda_time
+        self.dev, self.hbm_bw, self.iters = dev, hbm_bw, iters
+        self.cuda_time, self.device_time = cuda_time, device_time
         self.rec = {}
 
     def ms(self, fn, n):
+        """Back-to-back ms per call, host and card together: where the host
+        takes longer to queue a call than the card to run it, the host's."""
         return self.cuda_time(fn, self.dev, n)[0] * 1e3
+
+    def device_ms(self, fn, n):
+        """The card's ms per call, the host ahead of it (runner.device_time)."""
+        return self.device_time(fn, self.dev, n)[0] * 1e3
 
     def paired(self, kernel, plain, n_plain):
         """(kernel ms, plain ms), each the mean of two timings taken in
@@ -242,46 +260,71 @@ class Kernels:
         return (k1 + k2) / 2, (p1 + p2) / 2
 
     def hold(self, name, label, kernel, plain, n_plain, err, nbytes, ops=0,
-             library=None, record=True):
+             library=None, record=True, n_device=None):
+        """Checks a kernel's max_abs_err, times it, prints its line and
+        returns its record (kept as the kernel's JSON record if `record`).
+        `n_device` calls are queued for the device time (default `iters`):
+        fewer where one call launches many kernels, since the card's launch
+        queue stops the host once about a thousand wait."""
         check(err == 0, f"{name} ({label}) differs from its plain version")
         t_k, t_p = self.paired(kernel, plain, n_plain)
+        t_d = self.device_ms(kernel, n_device or self.iters)
         t_l = self.ms(library, self.iters) if library is not None else None
         t_b, by = bound(nbytes, ops)
         lib = f"{t_l:.4f} ms" if t_l is not None else "none"
         t_m = nbytes / (self.hbm_bw * 1e9) * 1e3
         phase("kernels", f"{name} ({label}): max_abs_err {err}; kernel {t_k:.4f} ms, "
-                         f"plain {t_p:.4f} ms, library {lib}, bound {t_b:.4f} ms "
-                         f"({by}: {nbytes} B, {ops} ops; bytes at the measured "
-                         f"{self.hbm_bw:.1f} GB/s {t_m:.4f} ms)")
+                         f"device {t_d:.4f} ms, plain {t_p:.4f} ms, library {lib}, "
+                         f"bound {t_b:.4f} ms ({by}: {nbytes} B, {ops} ops; bytes at "
+                         f"the measured {self.hbm_bw:.1f} GB/s {t_m:.4f} ms)")
+        rec = {"call": label, "max_abs_err": err, "ms": t_k, "device_ms": t_d,
+               "plain_ms": t_p, "bound_ms": t_b, "bound_by": by, "library_ms": t_l}
         if record:
-            self.rec[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                              "bound_ms": t_b, "bound_by": by, "library_ms": t_l}
+            self.rec[name] = rec
+        return rec
 
 
-def pad_phase(K, calls):
+def pad_yardsticks(args):
+    """(bytes, library call) of a PAD call: the bytes it must move (dest
+    of the live prefix read once, the landing rows of each column read
+    once, every slot of each column and of occ written once) and
+    index_copy_ into zeroed buffers, which computes the same."""
+    cols, dest, n_live, out_len = args
+    n = dest.shape[0]
+    live = ((torch.arange(n, device=dest.device) < n_live)
+            & (dest >= 0) & (dest < out_len))
+    idx = dest[live].long()
+    vals = [c[live] for c in cols]
+    esz = sum(c.element_size() for c in cols)
+
+    def library():
+        outs = [torch.zeros(out_len, dtype=v.dtype,
+                            device=v.device).index_copy_(0, idx, v) for v in vals]
+        return outs, torch.zeros(out_len, dtype=torch.int32,
+                                 device=idx.device).index_fill_(0, idx, 1)
+
+    return min(int(n_live), n) * 4 + idx.numel() * esz + out_len * (esz + 4), library
+
+
+def pack_yardsticks(args, total):
+    """(bytes, library call) of a PACK call: occ read once, the live rows
+    of each column read once, every output slot and `total` written once;
+    a boolean-mask index of each column, which computes the live rows."""
+    cols, occ = args
+    keep = occ != 0
+    esz = sum(c.element_size() for c in cols)
+    n = occ.shape[0]
+    return n * 4 + total * esz + n * esz + 4, lambda: [c[keep] for c in cols]
+
+
+def pad_phase(K, args, label, record):
     from tpq_torch.kernels.move import pad, pad_ref
 
-    for label, args in zip(("build", "probe", "tail window"), calls["pad"]):
-        cols, dest, n_live, out_len = args
-        err = pad_err(args, pad(*args))
-        n = dest.shape[0]
-        live = ((torch.arange(n, device=dest.device) < n_live)
-                & (dest >= 0) & (dest < out_len))
-        idx = dest[live].long()
-        vals = [c[live] for c in cols]
-        esz = sum(c.element_size() for c in cols)
-        moved = int(live.sum())
-
-        def library(idx=idx, vals=vals, out_len=out_len):
-            outs = [torch.zeros(out_len, dtype=v.dtype,
-                                device=v.device).index_copy_(0, idx, v) for v in vals]
-            return outs, torch.zeros(out_len, dtype=torch.int32,
-                                     device=idx.device).index_fill_(0, idx, 1)
-
-        nbytes = int(n_live) * 4 + moved * esz + out_len * (esz + 4)
-        K.hold("pad", f"{label}: {len(cols)} cols x {n} rows -> {out_len}",
-               lambda a=args: pad(*a), lambda a=args: pad_ref(*a), 5, err, nbytes,
-               library=library, record=label == "build")
+    cols, dest, _, out_len = args
+    nbytes, library = pad_yardsticks(args)
+    return K.hold("pad", f"{label}: {len(cols)} cols x {dest.shape[0]} rows -> {out_len}",
+                  lambda: pad(*args), lambda: pad_ref(*args), 5,
+                  pad_err(args, pad(*args)), nbytes, library=library, record=record)
 
 
 def pack_phase(K, args, label, record):
@@ -289,14 +332,20 @@ def pack_phase(K, args, label, record):
 
     cols, occ = args
     got = pack(*args)
-    err = pack_err(args, got)
-    keep = occ != 0
-    esz = sum(c.element_size() for c in cols)
-    n, total = occ.shape[0], int(got[1])
-    K.hold("pack", f"{label}: {len(cols)} col x {n} rows, total {total}",
-           lambda: pack(*args), lambda: pack_ref(*args), 5, err,
-           n * 4 + total * esz + n * esz + 4,
-           library=lambda: [c[keep] for c in cols], record=record)
+    total = int(got[1])
+    nbytes, library = pack_yardsticks(args, total)
+    return K.hold("pack", f"{label}: {len(cols)} col x {occ.shape[0]} rows, total {total}",
+                  lambda: pack(*args), lambda: pack_ref(*args), 5, pack_err(args, got),
+                  nbytes, library=library, record=record)
+
+
+def largest_call_phase(K, largest):
+    """PAD and PACK at their largest call of the planned config-5 join,
+    where the bytes they move, not the host, should set their time."""
+    for name, timed in (("pad", pad_phase), ("pack", pack_phase)):
+        K.rec[name]["config5_largest"] = timed(K, largest[name], "largest config-5 call",
+                                               record=False)
+        torch.cuda.empty_cache()
 
 
 def fused_phase(K, args, label, record):
@@ -376,7 +425,7 @@ def split_phase(K, calls):
     err = max_abs_err(list(zip(got, plain_sort())))
     K.hold("split1", f"lsd_radix_sort_bits, all 66 passes over {np_} planes",
            lambda: radix_sort.lsd_radix_sort_bits(*sort_args), plain_sort, 2, err,
-           66 * (n * 4 + 2 * np_ * n * 4 + 4), record=False)
+           66 * (n * 4 + 2 * np_ * n * 4 + 4), record=False, n_device=2)
 
 
 def kernel_phase(dev, cfg1, cfg3, hbm_bw):
@@ -395,7 +444,8 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     check(set(calls) == {"pad", "pack", "fused_walk_emit"},
           f"config 1 reached kernels {sorted(calls)}")
     check(len(calls["pad"]) == 3, "expected build, probe and tail-window PAD calls")
-    pad_phase(K, calls)
+    for label, args in zip(("build", "probe", "tail window"), calls["pad"]):
+        pad_phase(K, args, label, record=label == "build")
     (args,) = calls["pack"]
     pack_phase(K, args, "config-1 tail", record=True)
     (args,) = calls["fused_walk_emit"]
@@ -732,7 +782,7 @@ def config5_phase(dev, K, cfg):
     # against its plain version on the same inputs (the build PAD of
     # 33.5M rows, the walk/emit over u 50,331,648 queries of D 48)
     t0 = time.perf_counter()
-    held = hold_kernel_calls(
+    held, largest = hold_kernel_calls(
         lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"))
     for name, (calls, err) in held.items():
         check(calls == launches[name], f"{name}: {calls} calls held, "
@@ -744,6 +794,9 @@ def config5_phase(dev, K, cfg):
     phase("config5", "every kernel call of a planned join byte-equal to its plain "
                      "version: " + ", ".join(f"{k} {c}" for k, (c, _) in held.items())
           + f" ({time.perf_counter() - t0:.1f} s)")
+    largest_call_phase(K, largest)
+    del largest
+    torch.cuda.empty_cache()
 
     t_join = cuda_time(lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"),
                        dev, 3)[0] * 1e3

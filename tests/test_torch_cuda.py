@@ -10,6 +10,7 @@ Integer data: every comparison is exact."""
 import numpy as np
 import pytest
 import torch
+import torch_move_cases as cases
 
 from tpq_torch import Table, datagen
 from tpq_torch.columnar import canonicalize, tables_equal
@@ -78,6 +79,63 @@ def test_pack_kernel_matches_plain(dev, n, density):
     _eq(total, ref_total)
     for a, b in zip(outs, ref_outs):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("name", cases.PAD_CASES)
+def test_pad_kernel_contract_cases(dev, name):
+    """Interleaved sentinel runs longer than a tile, n_live = 0 over a
+    non-monotone dead dest, out_len not a multiple of the tile, 16 mixed
+    columns, all slots filled: byte-equal to the plain version, with
+    n_live an int and an int64 tensor, and again on a second call."""
+    cols, dest, n_live, out_len = cases.pad_case(name, scale=4)
+    cols = [torch.from_numpy(c).to(dev) for c in cols]
+    dest = torch.from_numpy(dest).to(dev)
+    for live in (n_live, torch.tensor(n_live, dtype=torch.int64, device=dev)):
+        before = pad.launches
+        outs, occ = pad(cols, dest, live, out_len)
+        again, occ2 = pad(cols, dest, live, out_len)
+        assert pad.launches == before + 2
+        ref_outs, ref_occ = pad_ref(cols, dest, live, out_len)
+        _eq(occ, ref_occ)
+        _eq(occ2, ref_occ)
+        for a, b, r in zip(outs, again, ref_outs):
+            _eq(a, r)
+            _eq(b, r)
+
+
+@pytest.mark.parametrize("name", cases.PACK_CASES)
+def test_pack_kernel_contract_cases(dev, name):
+    """Many more tiles than the persistent grid holds (a long look-back
+    chain and a long zero fill past `total`), all live, none live, occ
+    values other than 0/1, 16 mixed columns: byte-equal to the plain
+    version, and the same bytes on a second call."""
+    cols, occ = cases.pack_case(name, scale=8 if name == "many_tiles" else 1)
+    cols = [torch.from_numpy(c).to(dev) for c in cols]
+    occ = torch.from_numpy(occ).to(dev)
+    before = pack.launches
+    (outs, total), (again, total2) = pack(cols, occ), pack(cols, occ)
+    assert pack.launches == before + 2
+    ref_outs, ref_total = pack_ref(cols, occ)
+    _eq(total, ref_total)
+    _eq(total2, ref_total)
+    for a, b, r in zip(outs, again, ref_outs):
+        _eq(a, r)
+        _eq(b, r)
+
+
+def test_pack_kernel_takes_any_occ(dev):
+    """A bool occ, and an int32 occ 4 bytes off 16-byte alignment, which
+    the wrapper copies before the kernel's 16-byte loads."""
+    cols, occ = cases.pack_case("sixteen_cols")
+    cols = [torch.from_numpy(c).to(dev) for c in cols]
+    buf = torch.zeros(occ.shape[0] + 1, dtype=torch.int32, device=dev)
+    buf[1:] = torch.from_numpy(occ).to(dev)
+    for o in (buf[1:] != 0, buf[1:]):
+        outs, total = pack(cols, o)
+        ref_outs, ref_total = pack_ref(cols, o)
+        _eq(total, ref_total)
+        for a, r in zip(outs, ref_outs):
+            _eq(a, r)
 
 
 @pytest.mark.parametrize("rows,nkeys,out_capacity", [

@@ -10,6 +10,8 @@ import torch
 
 from tpq.kernels.move import pack as jpack
 from tpq.kernels.move import pad as jpad
+import torch_move_cases as cases
+from tpq_torch.kernels import move
 from tpq_torch.kernels.move import pack, pad
 
 torch.set_num_threads(2)
@@ -142,3 +144,55 @@ def test_wrappers_run_no_plain_version_off_cpu():
         pad([x], x, 4, 32)
     with pytest.raises(RuntimeError, match="no kernel"):
         pack([x], x)
+
+
+@pytest.mark.parametrize("name", cases.PAD_CASES)
+def test_pad_contract_cases(name):
+    """The cases a tiled PAD can get wrong (tests/torch_move_cases.py),
+    on the plain version against numpy placement; n_live as an int and as
+    an int64 tensor."""
+    cols, dest, n_live, out_len = cases.pad_case(name)
+    want, want_occ = cases.pad_np(cols, dest, n_live, out_len)
+    for live in (n_live, torch.tensor(n_live, dtype=torch.int64)):
+        outs, occ = pad([torch.from_numpy(c) for c in cols], torch.from_numpy(dest),
+                        live, out_len)
+        assert occ.dtype == torch.int32
+        np.testing.assert_array_equal(occ.numpy(), want_occ)
+        for c, o, w in zip(cols, outs, want):
+            assert o.numpy().dtype == c.dtype
+            np.testing.assert_array_equal(o.numpy(), w)
+
+
+@pytest.mark.parametrize("name", cases.PACK_CASES)
+def test_pack_contract_cases(name):
+    """The cases a single-pass PACK can get wrong, on the plain version
+    against numpy compaction; a second call gives the same bytes."""
+    cols, occ = cases.pack_case(name)
+    want, k = cases.pack_np(cols, occ)
+    args = ([torch.from_numpy(c) for c in cols], torch.from_numpy(occ))
+    (outs, total), (again, total2) = pack(*args), pack(*args)
+    assert total.dtype == torch.int32 and int(total) == int(total2) == k
+    for c, o, a, w in zip(cols, outs, again, want):
+        assert o.numpy().dtype == c.dtype
+        np.testing.assert_array_equal(o.numpy(), w)
+        np.testing.assert_array_equal(a.numpy(), w)
+
+
+def test_pack_state_takes_a_new_epoch_per_call():
+    """PACK's status words are kept per device and stream: each call
+    takes the next epoch over the same buffer; a larger call, or the
+    epoch's wrap, gets a new zeroed buffer whose epochs start at 1."""
+    cpu, key = torch.device("cpu"), (None, -1)
+    move._PACK_STATE.pop(key, None)
+    try:
+        s1, e1 = move._pack_state(cpu, -1, 10)
+        s2, e2 = move._pack_state(cpu, -1, 10)
+        assert s1 is s2 and (e1, e2) == (1, 2) and s1.dtype == torch.int64
+        s3, e3 = move._pack_state(cpu, -1, s1.numel() + 1)
+        assert s3 is not s1 and s3.numel() > s1.numel() and e3 == 1
+        assert not s3.any()
+        move._PACK_STATE[key][1] = 2**32 - 1
+        s4, e4 = move._pack_state(cpu, -1, 10)
+        assert s4 is not s3 and e4 == 1 and not s4.any()
+    finally:
+        move._PACK_STATE.pop(key, None)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from dataclasses import replace
 
 import torch
@@ -71,6 +72,36 @@ def cuda_time(fn, device, iters: int, warmup: int = 1) -> tuple[float, object]:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / 1e3 / iters, out
+
+
+def device_time(fn, device, n: int) -> tuple[float, float]:
+    """(card seconds, host seconds) per call of fn(): n calls queued behind
+    a spin of the stream (torch.cuda._sleep), so that the host is ahead of
+    the card and the events time the card alone, while the host's clock
+    times the calls from entry to return. The spin grows until the start
+    event is still pending once the host has queued all n calls. n stays
+    below the card's launch queue (about a thousand launches), which would
+    stop the host."""
+    fn()
+    torch.cuda.synchronize(device)
+    cycles = 1 << 21
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize(device)
+        if ahead:
+            return start.elapsed_time(end) / 1e3 / n, host
+        cycles *= 4
+        if cycles >= 1 << 36:
+            raise RuntimeError("device_time: the host never got ahead of the card")
 
 
 def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]:

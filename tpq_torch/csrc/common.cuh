@@ -28,18 +28,6 @@ static inline ColList make_cols(const void* const* src, void* const* dst,
   return c;
 }
 
-__device__ __forceinline__ void copy_row(const ColList& c, int64_t from,
-                                         int64_t to) {
-  for (int i = 0; i < c.n; i++) {
-    if (c.esz[i] == 8)
-      static_cast<int64_t*>(c.dst[i])[to] =
-          static_cast<const int64_t*>(c.src[i])[from];
-    else
-      static_cast<int32_t*>(c.dst[i])[to] =
-          static_cast<const int32_t*>(c.src[i])[from];
-  }
-}
-
 // Exclusive scan of one int per thread across the block, in thread
 // order; *total gets the block's sum. blockDim.x must be a multiple of
 // 32. `warp_sums` is shared scratch of 32 ints. Every thread of the
@@ -75,7 +63,7 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
 
 // Exclusive scan of n ints by ONE block of TPQ_SCAN_THREADS threads,
 // looping over chunks with a running carry; *total gets the sum. The
-// block offsets of PACK and of the walk/emit kernel come from here,
+// block offsets of the walk/emit kernel and of the split come from here,
 // never from atomics, so rows land in the same order on every run.
 // (static: each .cu file that launches it holds its own copy)
 static __global__ void scan_exclusive_one_block(const int32_t* __restrict__ in,

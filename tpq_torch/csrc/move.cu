@@ -1,24 +1,65 @@
 // PAD and PACK for Hopper (sm_90a): the port of tpq/kernels/move.py.
+// One launch per call each, no cudaMemsetAsync, every output byte
+// written once.
 //
-// PAD replaces move._pad_kernel (wrapper move.pad). On the TPU each
-// output tile DMAs its contiguous source window and expands it through
-// a shift network, because Mosaic has no fast scatter. Here the card
-// scatters natively: the outputs are zeroed with cudaMemsetAsync, then
-// one thread per source row writes its row to slot dest[k]. dest is
-// strictly increasing over the live prefix, so no two rows share a slot
-// and no atomics are needed. Bound by device-memory bytes: the zero
-// fill writes every output once, the scatter reads each source row and
-// writes it once.
+// PAD (pad_kernel) replaces move._pad_kernel (wrapper move.pad,
+// tpq/kernels/move.py:117). Bound by device-memory bytes: dest of the
+// live prefix read once, each landing row of each column read once, each
+// output slot of each column and of occ written once. Like the TPU
+// kernel, it is driven by output tiles: block b owns the slots
+// [b*T, b*T + T) and
+//   1. finds where its source rows start with one warp: a 33-way search
+//      over the live prefix (n_live read on the device), which narrows
+//      only on rows that land in [0, out_len). Those are strictly
+//      increasing; a live row that overflows carries a sentinel >=
+//      out_len anywhere in the prefix (lane_table's build and probe
+//      layout put it there), so a probe on it decides nothing. The
+//      start never passes the last landing row below the tile;
+//   2. reads dest forward from there, 2,048 rows a round, and stages in
+//      shared memory the source row of each of its slots (-1 for none)
+//      until it has passed a landing row at or past the tile's end, or
+//      the live prefix ends: runs of sentinels cannot cut its window;
+//   3. writes every slot of the tile once, 16-byte stores, one column
+//      per pass typed for 4 or 8 bytes, then occ.
+// The first version zeroed the outputs with a memset per column and one
+// for occ, then scattered one thread per source row: ncols + 2 device
+// operations a call, every output byte written twice, and an
+// element-size branch per column of every row.
 //
-// PACK replaces move._pack_kernel (wrapper move.pack). The TPU version
-// is one sequential grid carrying a row cursor in SMEM; blocks here run
-// in parallel and in no order, so the cursor becomes three launches:
-// a per-block count of live rows, a one-block exclusive scan of those
-// counts, and a stable scatter in which each block ranks its rows with
-// a block scan. Outputs are zeroed first, which leaves everything past
-// `total` zero as tpq's contract asks. Bound by bytes: occ is read twice,
-// the live rows once, and the outputs written once by the zero fill and
-// once by the scatter.
+// PACK (pack_kernel) replaces move._pack_kernel (wrapper move.pack,
+// tpq/kernels/move.py:242). Bound by bytes: occ read once, the live rows
+// of each column read once, every output slot written once (live rows
+// in front, zeros from `total` on, as tpq zeroes them at :280-284), and
+// `total`. The TPU kernel is one sequential grid carrying a row cursor;
+// here that cursor is a single-pass scan with decoupled look-back
+// (Merrill & Garland, 2016):
+//   - a persistent grid (at most what fits on the card at once) takes
+//     4,096-row tiles in order through an atomic ticket, never by
+//     blockIdx, so a tile's predecessors are always held by running
+//     blocks and waiting on them cannot deadlock;
+//   - a thread reads its 16 occ values of a tile as four int4 loads and
+//     keeps them as bits; rows are ranked within a warp by ballot and
+//     popc and across the 32 (round, warp) groups of the tile by one
+//     warp scan;
+//   - warp 0 publishes the tile's count, then looks back over its
+//     predecessors 32 at a time, adding counts until it meets an
+//     inclusive prefix, and publishes its own. A status is one 64-bit
+//     word (call epoch << 32 | inclusive flag << 31 | count), written
+//     with st.release and read with ld.acquire, so no reader sees a torn
+//     pair;
+//   - each column of the tile is read in 16-byte loads (a sector holds
+//     four rows, so a dead neighbour costs no extra DRAM traffic),
+//     compacted in shared memory and stored coalesced at the tile's
+//     scanned offset; once the last tile's inclusive prefix is out,
+//     every block zeroes its share of [total, N); the last tile writes
+//     `total`.
+// Output order comes from the scan alone: two calls give the same bytes.
+// The status words need no reset: the wrapper hands each call a new
+// epoch over a buffer it keeps per device and stream, and the block that
+// draws the launch's last ticket rearms the ticket counter to 0. The
+// first version issued ncols + 1 memsets and three dependent launches
+// (count, one-block scan, scatter), read occ twice, made 16 block scans
+// a tile and wrote each output twice.
 //
 // Every entry point returns cudaGetLastError() (0 on success).
 
@@ -26,89 +67,411 @@
 
 namespace {
 
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<int32_t> {
+  using type = int4;
+};
+template <>
+struct Vec16<int64_t> {
+  using type = longlong2;
+};
+
+// ---------------------------------------------------------------------------
+// PAD
+// ---------------------------------------------------------------------------
+
 constexpr int kPadThreads = 256;
+constexpr int kPadTile = 4096;  // output slots per block
+constexpr int kPadRounds = 8;   // dest rows a thread reads per round
+constexpr int kPadScan = kPadThreads * kPadRounds;
+
+// Warp 0 of a PAD block: the first source row to read for the tile at
+// s0. Rows that land (0 <= dest < out_len) are strictly increasing; the
+// result is at most one past the last landing row with dest < s0, and
+// every landing row of the tile lies at or after it.
+__device__ int64_t pad_find_start(const int32_t* __restrict__ dest, int64_t live,
+                                  int64_t out_len, int64_t s0) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = live;
+  while (hi - lo > kPadScan) {
+    const int64_t p = lo + (hi - lo) * (lane + 1) / 33;
+    const int64_t d = dest[p];
+    const bool lands = d >= 0 && d < out_len;
+    const unsigned below = __ballot_sync(0xffffffffu, lands && d < s0);
+    const unsigned above = __ballot_sync(0xffffffffu, lands && d >= s0);
+    int64_t nlo = lo, nhi = hi;
+    if (below) nlo = __shfl_sync(0xffffffffu, p, 31 - __clz(below)) + 1;
+    if (above) nhi = __shfl_sync(0xffffffffu, p, __ffs(above) - 1);
+    if (nlo == lo && nhi == hi) break;  // every probe on a non-landing row
+    lo = nlo;
+    hi = nhi;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int4 as_vec16(const int32_t (&e)[4]) {
+  return make_int4(e[0], e[1], e[2], e[3]);
+}
+__device__ __forceinline__ longlong2 as_vec16(const int64_t (&e)[2]) {
+  return make_longlong2(e[0], e[1]);
+}
+
+// Writes slots [s0, s0 + len) of dst, value(idx[j]) at slot s0 + j, in
+// 16-byte stores; every value of the thread is loaded before the first
+// store. idx holds kPadTile entries, -1 past len.
+template <typename T, typename F>
+__device__ __forceinline__ void pad_write(T* __restrict__ dst, int64_t s0, int len,
+                                          const int32_t* idx, F value) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kIters = kPadTile / (kPadThreads * V);
+  T e[kIters][V];
+#pragma unroll
+  for (int it = 0; it < kIters; it++) {
+    const int j = (it * kPadThreads + threadIdx.x) * V;
+#pragma unroll
+    for (int i = 0; i < V; i++) e[it][i] = value(idx[j + i]);
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; it++) {
+    const int j = (it * kPadThreads + threadIdx.x) * V;
+    if (j + V <= len) {
+      *reinterpret_cast<typename Vec16<T>::type*>(dst + s0 + j) = as_vec16(e[it]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; i++)
+        if (j + i < len) dst[s0 + j + i] = e[it][i];
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void pad_column(const void* src, void* dst, int64_t s0,
+                                           int len, const int32_t* idx) {
+  const T* __restrict__ s = static_cast<const T*>(src);
+  pad_write(static_cast<T*>(dst), s0, len, idx,
+            [s](int32_t k) { return k >= 0 ? s[k] : T(0); });
+}
+
+__global__ void __launch_bounds__(kPadThreads)
+    pad_kernel(ColList cols, const int32_t* __restrict__ dest, const void* n_live,
+               int n_live_esz, int64_t n, int64_t out_len, int32_t* __restrict__ occ) {
+  __shared__ int32_t idx[kPadTile];
+  __shared__ int64_t start;
+  const int64_t s0 = int64_t(blockIdx.x) * kPadTile;
+  if (s0 >= out_len) return;  // out_len == 0: the grid is one empty block
+  const int len = int(min(int64_t(kPadTile), out_len - s0));
+  const int64_t end = s0 + len;
+  int64_t live = n_live_esz == 8 ? *static_cast<const int64_t*>(n_live)
+                                 : *static_cast<const int32_t*>(n_live);
+  live = max(int64_t(0), min(live, n));
+
+  for (int j = threadIdx.x; j < kPadTile; j += kPadThreads) idx[j] = -1;
+  if (threadIdx.x < 32) {
+    const int64_t lo = pad_find_start(dest, live, out_len, s0);
+    if (threadIdx.x == 0) start = lo;
+  }
+  __syncthreads();
+
+  for (int64_t k0 = start;; k0 += kPadScan) {
+    bool past = false;
+#pragma unroll
+    for (int r = 0; r < kPadRounds; r++) {
+      const int64_t k = k0 + r * kPadThreads + threadIdx.x;
+      if (k < live) {
+        const int64_t d = dest[k];
+        if (d >= 0 && d < out_len) {
+          if (d >= end)
+            past = true;
+          else if (d >= s0)
+            idx[d - s0] = int32_t(k);
+        }
+      }
+    }
+    if (__syncthreads_or(past || k0 + kPadScan >= live)) break;
+  }
+
+  for (int c = 0; c < cols.n; c++) {
+    if (cols.esz[c] == 8)
+      pad_column<int64_t>(cols.src[c], cols.dst[c], s0, len, idx);
+    else
+      pad_column<int32_t>(cols.src[c], cols.dst[c], s0, len, idx);
+  }
+  pad_write(occ, s0, len, idx, [](int32_t k) { return int32_t(k >= 0); });
+}
+
+// ---------------------------------------------------------------------------
+// PACK
+// ---------------------------------------------------------------------------
+
 constexpr int kPackThreads = 256;
-constexpr int kPackIters = 16;
-constexpr int64_t kPackTile = int64_t(kPackThreads) * kPackIters;
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kPackRounds = 4;  // int4 loads of occ per thread per tile
+constexpr int kPackRound = kPackThreads * 4;
+constexpr int64_t kPackTile = int64_t(kPackRound) * kPackRounds;  // PACK_TILE in move.py
+static_assert(kPackRounds * kPackWarps == 32, "one warp scans a tile's groups");
 
-__global__ void pad_kernel(ColList cols, const int32_t* __restrict__ dest,
-                           const int32_t* __restrict__ n_live, int64_t n,
-                           int64_t out_len, int32_t* __restrict__ occ) {
-  const int64_t k = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= n || k >= int64_t(*n_live)) return;
-  const int64_t d = dest[k];
-  if (d < 0 || d >= out_len) return;  // dropped: overflow is counted upstream
-  copy_row(cols, k, d);
-  occ[d] = 1;
+constexpr uint64_t kTagMask = 0xffffffff00000000ull;
+constexpr uint64_t kInclusive = 1ull << 31;
+constexpr uint64_t kCountMask = kInclusive - 1;
+
+__device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void pack_count_kernel(const int32_t* __restrict__ occ, int64_t n,
-                                  int32_t* __restrict__ block_counts) {
-  const int64_t base = int64_t(blockIdx.x) * kPackTile;
-  int32_t c = 0;
-  for (int it = 0; it < kPackIters; it++) {
-    const int64_t k = base + int64_t(it) * kPackThreads + threadIdx.x;
-    c += __syncthreads_count(k < n && occ[k] != 0);
-  }
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = c;
+__device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__global__ void pack_scatter_kernel(ColList cols,
-                                    const int32_t* __restrict__ occ, int64_t n,
-                                    const int32_t* __restrict__ block_offsets) {
-  __shared__ int32_t warp_sums[32];
-  const int64_t base = int64_t(blockIdx.x) * kPackTile;
-  int64_t run = block_offsets[blockIdx.x];
-  for (int it = 0; it < kPackIters; it++) {
-    const int64_t k = base + int64_t(it) * kPackThreads + threadIdx.x;
-    const int32_t f = k < n && occ[k] != 0;
-    int32_t chunk;
-    const int32_t excl = block_exclusive_scan(f, warp_sums, &chunk);
-    if (f) copy_row(cols, k, run + excl);
-    run += chunk;
+// Warp 0 of a PACK block, all lanes: publishes tile t's count `agg`,
+// looks back for the live rows before the tile, publishes the tile's
+// inclusive prefix and returns the exclusive one.
+__device__ int64_t pack_look_back(uint64_t* status, int64_t t, uint32_t agg,
+                                  uint64_t tag) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) st_release(&status[0], tag | kInclusive | agg);
+    return 0;
   }
+  if (lane == 0) st_release(&status[t], tag | agg);
+  int64_t prefix = 0;
+  for (int64_t top = t - 1;; top -= 32) {
+    const int64_t i = top - lane;  // lane 0 is the nearest predecessor
+    uint64_t w;
+    bool ready;
+    do {
+      w = i >= 0 ? ld_acquire(&status[i]) : (tag | kInclusive);
+      ready = (w & kTagMask) == tag;
+    } while (!__all_sync(0xffffffffu, ready));
+    const unsigned incl = __ballot_sync(0xffffffffu, (w & kInclusive) != 0);
+    const int last = incl ? __ffs(incl) - 1 : 31;  // nearest inclusive lane
+    int64_t s = lane <= last ? int64_t(w & kCountMask) : 0;
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    prefix += s;
+    if (incl) break;
+  }
+  if (lane == 0) st_release(&status[t], tag | kInclusive | uint64_t(prefix + agg));
+  return prefix;
+}
+
+__device__ __forceinline__ void load4(const int32_t* p, int32_t (&v)[4]) {
+  const int4 a = *reinterpret_cast<const int4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const int64_t* p, int64_t (&v)[4]) {
+  const longlong2 a = reinterpret_cast<const longlong2*>(p)[0];
+  const longlong2 b = reinterpret_cast<const longlong2*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+
+// Moves the live rows of one column of a tile: the thread's rows of round
+// r are base + r * kPackRound + 4 * threadIdx.x + j, live where bit j of
+// bits[r] is set, the first at tile position pos[r]. They are read in
+// 16-byte loads where the column allows, compacted in shared memory and
+// written to [out0, out0 + count) in coalesced stores.
+template <typename T>
+__device__ __forceinline__ void pack_column(const void* src, void* dst, int64_t base,
+                                            int64_t n, const uint32_t* bits,
+                                            const int* pos, int64_t out0, int count,
+                                            T* stage) {
+  const T* __restrict__ s = static_cast<const T*>(src);
+  T* __restrict__ d = static_cast<T*>(dst);
+  const bool vec = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+#pragma unroll
+  for (int r = 0; r < kPackRounds; r++) {
+    if (bits[r] == 0) continue;
+    const int64_t k = base + r * kPackRound + 4 * threadIdx.x;
+    T v[4];
+    if (vec && k + 4 <= n) {
+      load4(s + k, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; j++) v[j] = (bits[r] >> j) & 1 ? s[k + j] : T(0);
+    }
+    int p = pos[r];
+#pragma unroll
+    for (int j = 0; j < 4; j++)
+      if ((bits[r] >> j) & 1) stage[p++] = v[j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += kPackThreads) d[out0 + i] = stage[i];
+  __syncthreads();  // the stage is refilled by the next column
+}
+
+template <typename T>
+__device__ __forceinline__ void zero_range(void* dst, int64_t from, int64_t to) {
+  using Vec = typename Vec16<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  T* d = static_cast<T*>(dst);
+  const int64_t a = min(to, (from + V - 1) / V * V);  // 16-byte aligned middle
+  const int64_t b = max(a, to / V * V);
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = from + tid; i < a; i += stride) d[i] = 0;
+  for (int64_t i = b + tid; i < to; i += stride) d[i] = 0;
+  const Vec z{};
+  for (int64_t i = a / V + tid; i < b / V; i += stride) reinterpret_cast<Vec*>(d)[i] = z;
+}
+
+// state[0] is the ticket counter, state[1 + t] tile t's status.
+__global__ void __launch_bounds__(kPackThreads)
+    pack_kernel(ColList cols, const int32_t* __restrict__ occ, int64_t n,
+                int64_t ntiles, uint64_t* __restrict__ state, uint32_t epoch,
+                int32_t* __restrict__ total) {
+  __shared__ int64_t ticket, out0, live_total;
+  __shared__ int32_t group_off[kPackRounds * kPackWarps], tile_count;
+  __shared__ __align__(16) int64_t stage[kPackTile];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint64_t* status = state + 1;
+  const uint64_t tag = uint64_t(epoch) << 32;
+
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const unsigned long long t =
+          atomicAdd(reinterpret_cast<unsigned long long*>(state), 1ull);
+      // the launch's last ticket: every block has drawn its final one
+      if (t == uint64_t(ntiles) + gridDim.x - 1)
+        atomicExch(reinterpret_cast<unsigned long long*>(state), 0ull);
+      ticket = int64_t(t);
+    }
+    __syncthreads();
+    const int64_t t = ticket;
+    if (t >= ntiles) break;
+    const int64_t base = t * kPackTile;
+
+    int4 v[kPackRounds];
+#pragma unroll
+    for (int r = 0; r < kPackRounds; r++) {
+      const int64_t k = base + r * kPackRound + 4 * threadIdx.x;
+      if (k + 4 <= n) {
+        v[r] = *reinterpret_cast<const int4*>(occ + k);
+      } else {
+        v[r].x = k < n ? occ[k] : 0;
+        v[r].y = k + 1 < n ? occ[k + 1] : 0;
+        v[r].z = k + 2 < n ? occ[k + 2] : 0;
+        v[r].w = 0;
+      }
+    }
+    uint32_t bits[kPackRounds];
+    int pos[kPackRounds];
+    const unsigned below = (1u << lane) - 1;
+#pragma unroll
+    for (int r = 0; r < kPackRounds; r++) {
+      bits[r] = uint32_t(v[r].x != 0) | uint32_t(v[r].y != 0) << 1 |
+                uint32_t(v[r].z != 0) << 2 | uint32_t(v[r].w != 0) << 3;
+      int rank = 0, count = 0;
+#pragma unroll
+      for (int j = 0; j < 4; j++) {
+        const unsigned m = __ballot_sync(0xffffffffu, (bits[r] >> j) & 1);
+        rank += __popc(m & below);
+        count += __popc(m);
+      }
+      pos[r] = rank;
+      if (lane == 0) group_off[r * kPackWarps + warp] = count;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int c = group_off[lane];
+      int x = c;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      group_off[lane] = x - c;
+      const uint32_t agg = uint32_t(__shfl_sync(0xffffffffu, x, 31));
+      const int64_t prefix = pack_look_back(status, t, agg, tag);
+      if (lane == 0) {
+        out0 = prefix;
+        tile_count = int(agg);
+        if (t == ntiles - 1) *total = int32_t(prefix + agg);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kPackRounds; r++) pos[r] += group_off[r * kPackWarps + warp];
+    for (int c = 0; c < cols.n; c++) {
+      if (cols.esz[c] == 8)
+        pack_column<int64_t>(cols.src[c], cols.dst[c], base, n, bits, pos, out0,
+                             tile_count, stage);
+      else
+        pack_column<int32_t>(cols.src[c], cols.dst[c], base, n, bits, pos, out0,
+                             tile_count, reinterpret_cast<int32_t*>(stage));
+    }
+    // ticket, out0, tile_count and group_off are rewritten next tile (the
+    // last column's pass ends in a barrier)
+  }
+
+  // every tile is taken; zeros from the total on, once the last tile's
+  // inclusive prefix is out (its holder is running: no deadlock)
+  if (threadIdx.x == 0) {
+    int64_t tot = 0;
+    if (ntiles > 0) {
+      uint64_t w;
+      while (((w = ld_acquire(&status[ntiles - 1])) & (kTagMask | kInclusive)) !=
+             (tag | kInclusive))
+        __nanosleep(64);
+      tot = int64_t(w & kCountMask);
+    } else {
+      *total = 0;  // n == 0: one block
+    }
+    live_total = tot;
+  }
+  __syncthreads();
+  for (int c = 0; c < cols.n; c++) {
+    if (cols.esz[c] == 8)
+      zero_range<int64_t>(cols.dst[c], live_total, n);
+    else
+      zero_range<int32_t>(cols.dst[c], live_total, n);
+  }
+}
+
+// Blocks of pack_kernel that fit on the current card at once.
+int pack_grid_cap() {
+  static int cap[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && cap[dev] > 0) return cap[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pack_kernel, kPackThreads, 0);
+  const int c = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < 64) cap[dev] = c;
+  return c;
 }
 
 }  // namespace
 
 extern "C" {
 
-int tpq_pad(const void* const* src, void* const* dst, const int* esz,
-            int ncols, const int32_t* dest, const int32_t* n_live, int64_t n,
+// n_live: one int32 or int64 value (n_live_esz bytes) on the device.
+int tpq_pad(const void* const* src, void* const* dst, const int* esz, int ncols,
+            const int32_t* dest, const void* n_live, int n_live_esz, int64_t n,
             int64_t out_len, int32_t* occ, cudaStream_t stream) {
-  ColList cols = make_cols(src, dst, esz, ncols);
-  for (int i = 0; i < ncols; i++)
-    cudaMemsetAsync(dst[i], 0, size_t(out_len) * esz[i], stream);
-  cudaMemsetAsync(occ, 0, size_t(out_len) * sizeof(int32_t), stream);
-  if (n > 0) {
-    const int64_t blocks = (n + kPadThreads - 1) / kPadThreads;
-    pad_kernel<<<unsigned(blocks), kPadThreads, 0, stream>>>(
-        cols, dest, n_live, n, out_len, occ);
-  }
+  const ColList cols = make_cols(src, dst, esz, ncols);
+  const int64_t blocks = out_len > 0 ? (out_len + kPadTile - 1) / kPadTile : 1;
+  pad_kernel<<<unsigned(blocks), kPadThreads, 0, stream>>>(
+      cols, dest, n_live, n_live_esz, n, out_len, occ);
   return int(cudaGetLastError());
 }
 
-// block_counts and block_offsets hold pack_blocks(n) ints each.
-int tpq_pack(const void* const* src, void* const* dst, const int* esz,
-             int ncols, const int32_t* occ, int64_t n, int32_t* block_counts,
-             int32_t* block_offsets, int32_t* total, cudaStream_t stream) {
-  ColList cols = make_cols(src, dst, esz, ncols);
-  for (int i = 0; i < ncols; i++)
-    cudaMemsetAsync(dst[i], 0, size_t(n) * esz[i], stream);
-  cudaMemsetAsync(total, 0, sizeof(int32_t), stream);
-  if (n > 0) {
-    const int64_t blocks = (n + kPackTile - 1) / kPackTile;
-    pack_count_kernel<<<unsigned(blocks), kPackThreads, 0, stream>>>(
-        occ, n, block_counts);
-    scan_exclusive_one_block<<<1, TPQ_SCAN_THREADS, 0, stream>>>(
-        block_counts, blocks, block_offsets, total);
-    pack_scatter_kernel<<<unsigned(blocks), kPackThreads, 0, stream>>>(
-        cols, occ, n, block_offsets);
-  }
+// state: state_words >= ceil(n / kPackTile) + 1 words, zero before the
+// first call and left for the next call on the same stream with epoch + 1
+// (epoch >= 1). occ must be 16-byte aligned.
+int tpq_pack(const void* const* src, void* const* dst, const int* esz, int ncols,
+             const int32_t* occ, int64_t n, uint64_t* state, int64_t state_words,
+             uint32_t epoch, int32_t* total, cudaStream_t stream) {
+  const ColList cols = make_cols(src, dst, esz, ncols);
+  const int64_t ntiles = (n + kPackTile - 1) / kPackTile;
+  if (ntiles + 1 > state_words) return int(cudaErrorInvalidValue);
+  const int64_t cap = pack_grid_cap();
+  const int64_t grid = ntiles < 1 ? 1 : ntiles < cap ? ntiles : cap;
+  pack_kernel<<<unsigned(grid), kPackThreads, 0, stream>>>(cols, occ, n, ntiles, state,
+                                                           epoch, total);
   return int(cudaGetLastError());
 }
-
-int64_t tpq_pack_tile(void) { return kPackTile; }
 
 const char* tpq_error_string(int code) {
   return cudaGetErrorString(cudaError_t(code));

@@ -1,8 +1,9 @@
 """PAD and PACK (port of tpq/kernels/move.py).
 
   * pad(planes, dest, n_live, out_len): row k < n_live of compact columns
-    goes to slot dest[k] (dest strictly increasing over the live prefix);
-    rows with dest outside [0, out_len) or k >= n_live are dropped.
+    goes to slot dest[k] (dest strictly increasing over the live rows
+    that land in [0, out_len)); rows with dest outside [0, out_len) or
+    k >= n_live are dropped.
     Returns the [out_len] columns and a 0/1 int32 occ; unwritten slots
     are 0.
   * pack(planes, occ): stable compaction of the rows with occ != 0 to
@@ -13,7 +14,8 @@ Columns are int32 (tpq's 32-bit planes, so the JAX wrapper's inputs are
 taken as they are) or int64 (the port moves 64-bit keys and payloads as
 one column). A wrapper runs its CUDA kernel (tpq_torch/csrc/move.cu) on
 CUDA tensors and its plain torch version on CPU tensors; on any other
-device it raises. Each wrapper counts its kernel launches in `.launches`.
+device it raises. Each wrapper counts its kernel launches in `.launches`:
+one launch per call.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from tpq_torch.kernels import _build
 
 I32 = torch.int32
 MAX_COLS = 16  # TPQ_MAX_COLS in csrc/common.cuh
+PACK_TILE = 4096  # kPackTile in csrc/move.cu (the kernel checks the state size)
 
 
 def _check_cols(planes, n: int, what: str) -> list[torch.Tensor]:
@@ -68,25 +71,33 @@ def pad_ref(planes, dest: torch.Tensor, n_live, out_len: int):
 def pad(planes, dest: torch.Tensor, n_live, out_len: int):
     """Place row k (k < n_live) of each compact column at slot dest[k].
 
-    dest: int32[N], strictly increasing over the live prefix (caller's
-    contract; live rows that overflow carry a dest >= out_len and are
-    counted as overflow upstream). n_live: int or 0-d tensor."""
+    dest: int32[N], strictly increasing over the live rows that land in
+    [0, out_len) (caller's contract; live rows that overflow carry a dest
+    >= out_len anywhere in the live prefix and are counted as overflow
+    upstream). n_live: int or 0-d int32/int64 tensor, read on the device."""
     n = dest.shape[0]
     planes = _check_cols(planes, n, "pad")
-    n_live = torch.as_tensor(n_live, dtype=I32, device=dest.device).reshape(())
     if _device_of(dest, "pad") == "cpu":
+        n_live = torch.as_tensor(n_live, dtype=I32, device=dest.device).reshape(())
         return pad_ref(planes, dest, n_live, out_len)
     if n >= 2**31 or out_len >= 2**31:
         raise ValueError("pad: int32 row indices need N, out_len < 2^31")
-    dest = dest.to(I32).contiguous()
+    if dest.dtype != I32 or not dest.is_contiguous():
+        dest = dest.to(I32).contiguous()
+    if not isinstance(n_live, torch.Tensor) or n_live.device != dest.device:
+        n_live = torch.as_tensor(n_live, device=dest.device)  # a host value
+    if n_live.numel() != 1:
+        raise ValueError("pad: n_live must be one value")
+    if n_live.dtype not in (torch.int32, torch.int64):
+        n_live = n_live.to(torch.int64)
     outs = [torch.empty(out_len, dtype=p.dtype, device=p.device) for p in planes]
     occ = torch.empty(out_len, dtype=I32, device=dest.device)
-    with torch.cuda.device(dest.device):
+    with _build.on_device(dest):
         code = _build.lib().tpq_pad(
             _build.ptr_array(planes), _build.ptr_array(outs),
             _build.int_array([p.element_size() for p in planes]), len(planes),
-            dest.data_ptr(), n_live.data_ptr(), n, out_len, occ.data_ptr(),
-            _build.stream_of(dest))
+            dest.data_ptr(), n_live.data_ptr(), n_live.element_size(), n, out_len,
+            occ.data_ptr(), _build.stream_of(dest))
     _build.check(code, "pad")
     pad.launches += 1
     return outs, occ
@@ -112,6 +123,24 @@ def pack_ref(planes, occ: torch.Tensor):
     return outs, total
 
 
+# (device index, stream) -> [int64 status words, last epoch]: PACK's
+# ticket counter and tile statuses, kept across calls. Each call takes
+# the next epoch, so the words of earlier calls read as not yet written
+# and nothing is reset between calls; the kernel rearms the counter.
+_PACK_STATE: dict = {}
+
+
+def _pack_state(device: torch.device, stream: int, words: int):
+    key = (device.index, stream)
+    st = _PACK_STATE.get(key)
+    if st is None or st[0].numel() < words or st[1] >= 2**32 - 1:
+        size = max(words, 2 * st[0].numel() if st is not None else 1024)
+        st = _PACK_STATE[key] = [torch.zeros(size, dtype=torch.int64,
+                                             device=device), 0]
+    st[1] += 1
+    return st[0], st[1]
+
+
 def pack(planes, occ: torch.Tensor):
     """Compact the rows with occ != 0 of each column to the front, order
     kept. Returns ([N] columns zero after the live prefix, total int32)."""
@@ -121,19 +150,20 @@ def pack(planes, occ: torch.Tensor):
         return pack_ref(planes, occ)
     if n >= 2**31:
         raise ValueError("pack: int32 row indices need N < 2^31")
-    occ = occ.to(I32).contiguous()
+    if occ.dtype != I32 or not occ.is_contiguous() or occ.data_ptr() % 16:
+        # the kernel reads occ in 16-byte loads
+        occ = occ.to(I32, memory_format=torch.contiguous_format, copy=True)
     lib = _build.lib()
-    blocks = max(1, -(-n // lib.tpq_pack_tile()))
+    stream = _build.stream_of(occ)
+    state, epoch = _pack_state(occ.device, stream, -(-n // PACK_TILE) + 1)
     outs = [torch.empty_like(p) for p in planes]
-    block_counts = torch.empty(blocks, dtype=I32, device=occ.device)
-    block_offsets = torch.empty(blocks, dtype=I32, device=occ.device)
     total = torch.empty((), dtype=I32, device=occ.device)
-    with torch.cuda.device(occ.device):
+    with _build.on_device(occ):
         code = lib.tpq_pack(
             _build.ptr_array(planes), _build.ptr_array(outs),
             _build.int_array([p.element_size() for p in planes]), len(planes),
-            occ.data_ptr(), n, block_counts.data_ptr(), block_offsets.data_ptr(),
-            total.data_ptr(), _build.stream_of(occ))
+            occ.data_ptr(), n, state.data_ptr(), state.numel(), epoch,
+            total.data_ptr(), stream)
     _build.check(code, "pack")
     pack.launches += 1
     return outs, total
