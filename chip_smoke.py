@@ -16,8 +16,9 @@ Phases, one line each; any failure raises and exits non-zero:
                 walk/emit at config 1; the walk-only probe at config 3's
                 membership and at config 1's tables (one payload); the
                 fused walk/emit at config 3's heavy mini table; the
-                1-bit split at one config-1 radix pass and
-                lsd_radix_sort_bits over all 66 passes;
+                digit split (JSON name split1) at one pass of the
+                config-1 radix merge's sort and over the whole sort
+                (every pass held), then the sort at digit widths 4 to 8;
   4. config1  — the 1M x 1M uniform join, hash_join(impl="lane"): one
                 join with every launch count zeroed just before it and
                 read just after (PAD, PACK and the fused walk/emit
@@ -31,7 +32,8 @@ Phases, one line each; any failure raises and exits non-zero:
                 path taken (`join_hash_skew`); heavy keys and their share
                 of the probe rows;
   6. merge    — merge_join(sort_engine="radix") at config 1, the same
-                way: 66 split launches in the join and no other kernel,
+                way: one split launch per digit pass of its 66 bit specs
+                (9 at 8 bits a pass) and no other kernel,
                 rows byte-equal to the oracle's merge join; end-to-end ms
                 beside the lax engine;
   7. fallback — an h2-colliding key pair clears the lane join's `ok`, and
@@ -54,9 +56,9 @@ Phases, one line each; any failure raises and exits non-zero:
                 byte-equal to the oracle; the join once more with every
                 call of those four kernels held, as it is made, byte-equal
                 to its plain version on the same inputs (the sizes past
-                2^31 that no CPU test reaches); PAD and PACK timed at
-                their largest call of that join (`config5_largest` in
-                their records); the multiset checksum
+                2^31 that no CPU test reaches); PAD, PACK and the fused
+                walk/emit timed at their largest call of that join
+                (`config5_largest` in their records); the multiset checksum
                 equal to the single-card lane join's; end-to-end and
                 planning ms, peak memory.
 The line before the last is the kernels' JSON record: `launches` is the
@@ -123,7 +125,7 @@ def with_wrappers_replaced(run, replace):
 
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
-               (lane_table, "probe_walk"), (radix_sort, "_split1"),
+               (lane_table, "probe_walk"), (radix_sort, "split_digit"),
                (radix_sort, "lsd_radix_sort_bits"),
                (radix_partition, "radix_histogram")]
     saved = [getattr(m, n) for m, n in patched]
@@ -190,14 +192,27 @@ ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
         "radix_histogram": hist_err}
 
 
+LARGEST = ("pad", "pack", "fused_walk_emit")  # kept at their largest call
+
+
+def call_size(name, args) -> int:
+    """What picks a join's largest call: PAD's and PACK's output slots
+    times row width (move_ab.size), the walk/emit's padded queries."""
+    from tpq_torch.bench.move_ab import size
+
+    return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
+
+
 def hold_kernel_calls(run):
     """Runs `run()` with every call of PAD, PACK, the fused walk/emit and
     the histogram held, as it is made, against the plain version on the
-    same inputs. Returns ({name: (calls, largest max_abs_err)}, {"pad" and
-    "pack": the arguments of their largest call})."""
-    from tpq_torch.bench.move_ab import size
+    same inputs; the walk/emit is also timed on the card alone at every
+    call. Returns ({name: (calls, largest max_abs_err)}, {name in
+    LARGEST: the arguments of its largest call}, [device ms of each
+    walk/emit call])."""
+    from tpq_torch.bench.runner import device_time
 
-    held, largest = {}, {}
+    held, largest, times = {}, {}, []
 
     def holder(name, fn):
         if name not in ERRS:
@@ -206,16 +221,18 @@ def hold_kernel_calls(run):
         @functools.wraps(fn)
         def hold(*args):
             got = fn(*args)
+            if name == "fused_walk_emit":
+                times.append(device_time(lambda: fn(*args), args[1].device, 3)[0] * 1e3)
             n, err = held.get(name, (0, 0))
             held[name] = (n + 1, max(err, ERRS[name](args, got)))
-            if name in ("pad", "pack") and (name not in largest or size(
-                    name, args) > size(name, largest[name])):
+            if name in LARGEST and (name not in largest or call_size(
+                    name, args) > call_size(name, largest[name])):
                 largest[name] = args
             return got
         return hold
 
     with_wrappers_replaced(run, holder)
-    return held, largest
+    return held, largest, times
 
 
 def bound(nbytes: int, ops: int = 0):
@@ -340,12 +357,16 @@ def pack_phase(K, args, label, record):
 
 
 def largest_call_phase(K, largest):
-    """PAD and PACK at their largest call of the planned config-5 join,
-    where the bytes they move, not the host, should set their time."""
-    for name, timed in (("pad", pad_phase), ("pack", pack_phase)):
+    """PAD, PACK and the fused walk/emit at their largest call of the
+    planned config-5 join, where the bytes they move, not the host,
+    should set their time."""
+    for name, timed in (("pad", pad_phase), ("pack", pack_phase),
+                        ("fused_walk_emit", fused_phase)):
         K.rec[name]["config5_largest"] = timed(K, largest[name], "largest config-5 call",
                                                record=False)
         torch.cuda.empty_cache()
+    K.rec["fused_walk_emit"]["config5_largest"]["device_ms_by_chunk"] = chunk_sweep(
+        K, largest["fused_walk_emit"], "largest config-5 call")
 
 
 def fused_phase(K, args, label, record):
@@ -362,11 +383,36 @@ def fused_phase(K, args, label, record):
     matched = int(((cnt > 0) & (qocc > 0)).sum())
     nbytes = (u * 16 + tables.key.numel() * 8 + tables.blen.numel() * 4
               + n * 8 * nr + matched * 8 * ns + u * 8 + n * 8 * (1 + nr + ns))
-    K.hold("fused_walk_emit",
-           f"{label}: npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
-           f"u={u}, {n} inline rows of {cap}",
-           lambda: fused_walk_emit(*args), lambda: fused_walk_emit_ref(*args), 3,
-           err, nbytes, walk_work(tables, lane, qocc), record=record)
+    return K.hold("fused_walk_emit",
+                  f"{label}: npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
+                  f"u={u}, {n} inline rows of {cap}",
+                  lambda: fused_walk_emit(*args), lambda: fused_walk_emit_ref(*args), 3,
+                  err, nbytes, walk_work(tables, lane, qocc), record=record)
+
+
+def chunk_sweep(K, args, label):
+    """The fused walk/emit on the card alone at each size of its work
+    items (padded queries per CTA), each output byte-equal to the size in
+    use's; returns {queries: device ms}."""
+    from tpq_torch.kernels import lane2
+
+    plan = args[0].plan
+    want, times, saved = lane2.fused_walk_emit(*args), {}, lane2.work_item_queries
+    n = min(int(want[1].clamp_max(plan.inline_k).sum()), args[-1])
+    try:
+        for c in (1024, 2048, 4096):
+            lane2.work_item_queries = lambda *_, c=c: min(c, plan.probe_cap)
+            got = lane2.fused_walk_emit(*args)
+            check(max_abs_err([(got[1], want[1]), (got[2], want[2])]
+                              + [(a[:n], b[:n]) for a, b in zip(got[0], want[0])]) == 0,
+                  f"fused_walk_emit ({label}) differs at {c} queries a work item")
+            times[c] = K.device_ms(lambda: lane2.fused_walk_emit(*args), K.iters)
+    finally:
+        lane2.work_item_queries = saved
+    phase("kernels", f"fused_walk_emit ({label}) on the card alone by queries per work "
+                     "item: " + ", ".join(f"{c} {t:.4f} ms" for c, t in times.items())
+          + f"; in use {saved(plan, args[1].device.index)}")
+    return times
 
 
 def probe_phase(K, args, label, record):
@@ -389,43 +435,86 @@ def probe_phase(K, args, label, record):
            nbytes, walk_work(tables, lane, qocc), record=record)
 
 
-def split_phase(K, calls):
-    from tpq_torch.kernels import radix_sort
+def digit_of(planes, specs):
+    """The digit of a pass: bit b of plane pi is digit bit i (int64)."""
+    d = torch.zeros(planes[0].shape[0], dtype=torch.int64, device=planes[0].device)
+    for i, (pi, b) in enumerate(specs):
+        d |= ((planes[pi].long() >> b) & 1) << i
+    return d
 
-    split_calls = calls["_split1"]
-    check(len(split_calls) == 66, f"{len(split_calls)} radix passes, expected 66")
-    args = split_calls[1]  # key bit 0
-    planes, bit = args
-    got, want = radix_sort._split1(*args), radix_sort.split1_ref(*args)
-    err = max_abs_err(list(zip(got, want)))
-    n, np_ = bit.shape[0], len(planes)
+
+def split_phase(K, calls):
+    """The digit split at one pass of the radix merge's sort and over the
+    whole sort, every pass held byte-equal to its plain version (the
+    group's one-bit splits), then the sort timed at each digit width."""
+    from tpq_torch.kernels import radix_sort
+    from tpq_torch.ops.union_join import union_sort_specs
+
+    (sort_args,) = calls["lsd_radix_sort_bits"]
+    specs = list(sort_args[1])
+    check(specs == union_sort_specs(64), "the merge's sort ran other bit specs")
+    passes = radix_sort.digit_passes(len(specs))
+    pass_calls = calls["split_digit"]
+    check(len(pass_calls) == passes, f"{len(pass_calls)} digit passes, expected "
+                                     f"{passes} for {len(specs)} specs")
+    err = max(max_abs_err(list(zip(radix_sort.split_digit(*a),
+                                   radix_sort.split_digit_ref(*a)))) for a in pass_calls)
+    args = pass_calls[1]  # key bits 7..14
+    planes, pspecs = args
+    n, np_ = planes[0].shape[0], len(planes)
+    digit = digit_of(planes, pspecs)
 
     def library():
-        perm = torch.sort(bit, stable=True).indices
+        perm = torch.sort(digit, stable=True).indices
         return [p.index_select(0, perm) for p in planes]
 
-    K.hold("split1", f"pass 2 of 66: {np_} int32 planes x {n} rows, "
-                     f"n0 {int((bit == 0).sum())}",
-           lambda: radix_sort._split1(*args), lambda: radix_sort.split1_ref(*args),
-           5, err, n * 4 + 2 * np_ * n * 4 + 4, library=library)
+    one_pass = 2 * np_ * n * 4  # every plane read once and written once
+    K.hold("split1", f"pass 2 of {passes}: {np_} int32 planes x {n} rows, "
+                     f"{len(pspecs)}-bit digit, {int(torch.unique(digit).numel())} "
+                     f"digits taken (all {passes} passes checked)",
+           lambda: radix_sort.split_digit(*args), lambda: radix_sort.split_digit_ref(*args),
+           3, err, one_pass, library=library)
+
+    # the 1-bit split on key bit 0 after the side split, the pass the
+    # one-bit design timed, through _split1 (the kernel, 1-bit digit)
+    planes1 = radix_sort.split_digit_ref(sort_args[0], specs[:1])
+    bit = (planes1[specs[1][0]] >> specs[1][1]) & 1
+    args1 = (planes1, bit)
+    err = max_abs_err(list(zip(radix_sort._split1(*args1), radix_sort.split1_ref(*args1))))
+    K.rec["split1"]["one_bit_pass"] = K.hold(
+        "split1", f"_split1, the 1-bit pass 2 of {len(specs)} (key bit 0): {np_} planes x "
+                  f"{n} rows, n0 {int((bit == 0).sum())}",
+        lambda: radix_sort._split1(*args1), lambda: radix_sort.split1_ref(*args1), 3, err,
+        one_pass + n * 4, record=False)
 
     # the whole sort: every pass on the kernel, then every pass on the
-    # plain version (the module global swapped for the plain split)
-    (sort_args,) = calls["lsd_radix_sort_bits"]
-
+    # plain version (the module global swapped for the plain pass)
     def plain_sort():
-        saved = radix_sort._split1
-        radix_sort._split1 = radix_sort.split1_ref
+        saved = radix_sort.split_digit
+        radix_sort.split_digit = radix_sort.split_digit_ref
         try:
             return radix_sort.lsd_radix_sort_bits(*sort_args)
         finally:
-            radix_sort._split1 = saved
+            radix_sort.split_digit = saved
 
     got = radix_sort.lsd_radix_sort_bits(*sort_args)
     err = max_abs_err(list(zip(got, plain_sort())))
-    K.hold("split1", f"lsd_radix_sort_bits, all 66 passes over {np_} planes",
-           lambda: radix_sort.lsd_radix_sort_bits(*sort_args), plain_sort, 2, err,
-           66 * (n * 4 + 2 * np_ * n * 4 + 4), record=False, n_device=2)
+    K.rec["split1"]["whole_sort"] = K.hold(
+        "split1", f"lsd_radix_sort_bits, all {passes} passes over {np_} planes",
+        lambda: radix_sort.lsd_radix_sort_bits(*sort_args), plain_sort, 2, err,
+        passes * one_pass, record=False, n_device=5)
+
+    # the sort at each digit width, byte-equal to the default's output
+    widths = {}
+    for w in range(4, radix_sort.MAX_DIGIT_BITS + 1):
+        out = radix_sort.lsd_radix_sort_bits(*sort_args, digit_bits=w)
+        check(max_abs_err(list(zip(out, got))) == 0, f"digit width {w} sorts otherwise")
+        widths[w] = K.device_ms(
+            lambda w=w: radix_sort.lsd_radix_sort_bits(*sort_args, digit_bits=w), 5)
+    K.rec["split1"]["sort_device_ms_by_digit_bits"] = widths
+    phase("kernels", "split1: whole sort on the card alone by digit width: " + ", ".join(
+        f"{w} bits ({radix_sort.digit_passes(len(specs), w)} passes) {t:.4f} ms"
+        for w, t in widths.items()) + f"; width in use {radix_sort.DIGIT_BITS}")
 
 
 def kernel_phase(dev, cfg1, cfg3, hbm_bw):
@@ -450,6 +539,7 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     pack_phase(K, args, "config-1 tail", record=True)
     (args,) = calls["fused_walk_emit"]
     fused_phase(K, args, "config 1", record=True)
+    K.rec["fused_walk_emit"]["device_ms_by_chunk"] = chunk_sweep(K, args, "config 1")
 
     # the walk-only probe with a payload column: config 1's tables (D 48,
     # K 4) probed by config 1's S
@@ -468,7 +558,10 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     probe_phase(K, calls["probe_walk"][0], "config-3 membership of R", record=True)
     heavy = [a for a in calls["fused_walk_emit"] if a[0].plan.npart == 1]
     check(len(heavy) == 1, "expected one heavy-path fused walk/emit")
-    fused_phase(K, heavy[0], "config-3 heavy mini table", record=False)
+    K.rec["fused_walk_emit"]["config3_heavy"] = fused_phase(
+        K, heavy[0], "config-3 heavy mini table", record=False)
+    K.rec["fused_walk_emit"]["config3_heavy"]["device_ms_by_chunk"] = chunk_sweep(
+        K, heavy[0], "config-3 heavy mini table")
     pack_phase(K, calls["pack"][0], "config-3 nomination", record=False)
 
     calls = record_kernel_calls(
@@ -535,10 +628,10 @@ def wrappers():
     from tpq_torch.kernels.lane_table import probe_walk
     from tpq_torch.kernels.move import pack, pad
     from tpq_torch.kernels.radix_partition import radix_histogram
-    from tpq_torch.kernels.radix_sort import _split1
+    from tpq_torch.kernels.radix_sort import split_digit
 
     return {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit,
-            "probe_walk": probe_walk, "split1": _split1,
+            "probe_walk": probe_walk, "split1": split_digit,
             "radix_histogram": radix_histogram}
 
 
@@ -610,13 +703,16 @@ def merge_phase(dev, cfg, hbm_bw):
     from dataclasses import replace
 
     from tpq_torch.bench.runner import cuda_time, gen, out_capacity_for
+    from tpq_torch.kernels.radix_sort import digit_passes
     from tpq_torch.ops import merge_join
+    from tpq_torch.ops.union_join import union_sort_specs
 
     cfg = replace(cfg, join=replace(cfg.join, algo="merge", sort_engine="radix"))
     launches, _ = run_path("merge", dev, cfg, {"split1"}, "join_merge_radix", hbm_bw,
                            oracle_algo="merge")
-    check(launches["split1"] == 66, f"split launched {launches['split1']} times, "
-                                    f"expected 66")
+    passes = digit_passes(len(union_sort_specs(64)))
+    check(launches["split1"] == passes, f"split launched {launches['split1']} times, "
+                                        f"expected {passes} digit passes")
     r, s = gen(cfg.r, dev), gen(cfg.s, dev)
     cap = out_capacity_for(cfg)
     t_lax1, t_rad1, t_rad2, t_lax2 = (
@@ -782,7 +878,7 @@ def config5_phase(dev, K, cfg):
     # against its plain version on the same inputs (the build PAD of
     # 33.5M rows, the walk/emit over u 50,331,648 queries of D 48)
     t0 = time.perf_counter()
-    held, largest = hold_kernel_calls(
+    held, largest, walk_ms = hold_kernel_calls(
         lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"))
     for name, (calls, err) in held.items():
         check(calls == launches[name], f"{name}: {calls} calls held, "
@@ -795,6 +891,10 @@ def config5_phase(dev, K, cfg):
                      "version: " + ", ".join(f"{k} {c}" for k, (c, _) in held.items())
           + f" ({time.perf_counter() - t0:.1f} s)")
     largest_call_phase(K, largest)
+    K.rec["fused_walk_emit"]["config5_per_join_device_ms"] = sum(walk_ms)
+    phase("config5", f"fused walk/emit on the card alone, {len(walk_ms)} calls of a "
+                     f"planned join: {sum(walk_ms):.4f} ms in all ("
+                     + ", ".join(f"{t:.4f}" for t in walk_ms) + ")")
     del largest
     torch.cuda.empty_cache()
 

@@ -19,11 +19,13 @@ from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, plan_lane2)
 from tpq_torch.kernels.lane_table import (LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
-                                          probe_walk_ref)
+                                          probe_walk_ref, walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
 from tpq_torch.kernels.radix_partition import radix_histogram, radix_histogram_ref
-from tpq_torch.kernels.radix_sort import _split1, split1_ref
+from tpq_torch.kernels.radix_sort import (_split1, digit_passes, lsd_radix_sort_bits,
+                                          split1_ref, split_digit, split_digit_ref)
 from tpq_torch.ops import hash_join, merge_join
+from tpq_torch.ops.union_join import union_sort_specs
 
 pytestmark = pytest.mark.cuda
 
@@ -161,6 +163,69 @@ def test_fused_walk_emit_matches_plain(dev, rows, nkeys, out_capacity):
         _eq(a[:n], b[:n])
 
 
+def _walk_emit_case(dev, case):
+    """(plan, walk/emit arguments) of a contract case; see
+    test_fused_walk_emit_contract_cases."""
+    shapes = {  # rows, nkeys, npart, depth, K, probe_cap
+        "probe_cap past a work item": (12_000, 4_000, 2, 48, 4, 10_240),
+        "live queries in the last work item": (12_000, 4_000, 2, 48, 4, 10_240),
+        "heavy table": (3_000, 300, 1, 64, 8, 65_536),
+        "D 72": (8_000, 2_000, 8, 72, 4, 2_048),
+        "out_capacity cuts a work item": (8_000, 2_000, 8, 48, 4, 2_048),
+        "out_capacity 0": (8_000, 2_000, 8, 48, 4, 2_048),
+        "all queries dead": (8_000, 2_000, 8, 48, 4, 2_048),
+    }
+    rows, nkeys, npart, depth, k, probe_cap = shapes[case]
+    s_rows = 60_000 if case == "heavy table" else rows
+    r = datagen.gen_relation(rows, nkeys, payloads=2, seed=3, device=dev)
+    s = datagen.gen_relation(s_rows, nkeys, payloads=1, seed=4, device=dev)
+    plan = LanePlan(pbits=npart.bit_length() - 1, depth=depth, probe_cap=probe_cap,
+                    inline_k=k, tail_rows_cap=2048, tail_out_cap=4096)
+    tables = build_lane_tables(r, plan)
+    qk, spay, lane, qocc, ovf = _probe_layout(plan, s, "key")
+    assert not bool(ovf)
+    if case == "live queries in the last work item":
+        # the layout packs a partition's queries to its front: reversed,
+        # they sit in the last of its three work items
+        flip = lambda x: x.reshape(npart, probe_cap).flip(1).reshape(-1).contiguous()
+        qk, lane, qocc, spay = flip(qk), flip(lane), flip(qocc), [flip(x) for x in spay]
+    if case == "all queries dead":
+        qocc = torch.zeros_like(qocc)
+    n = int(torch.where(qocc > 0, walk_ref(tables, qk, lane, qocc, 0)[0], 0)
+            .clamp_max(k).sum())
+    cap = {"out_capacity cuts a work item": n // 2 + 1, "out_capacity 0": 0}.get(
+        case, n + 100)
+    return plan, (tables, qk, lane, qocc, spay, cap)
+
+
+@pytest.mark.parametrize("case", [
+    "probe_cap past a work item", "live queries in the last work item", "heavy table",
+    "D 72", "out_capacity cuts a work item", "out_capacity 0", "all queries dead"])
+def test_fused_walk_emit_contract_cases(dev, case):
+    """One launch per call; cnt, d_first and every row below out_capacity
+    byte-equal to the plain version, and the same bytes on a second call:
+    a partition over three work items (4,096 queries at most each) with
+    its live queries at the front or all in the last, the one-partition
+    heavy table at D 64 and K 8, D 72, out_capacity cutting a work item's
+    rows at an odd row and out_capacity 0, every query dead."""
+    plan, args = _walk_emit_case(dev, case)
+    cap = args[-1]
+    before = fused_walk_emit.launches
+    first, second = fused_walk_emit(*args), fused_walk_emit(*args)
+    assert fused_walk_emit.launches == before + 2
+    ref_outs, ref_cnt, ref_df = fused_walk_emit_ref(*args)
+    n = min(int(ref_cnt.clamp_max(plan.inline_k).sum()), cap)
+    if case == "all queries dead":
+        assert n == 0 and int(ref_cnt.abs().sum()) == 0
+    elif case != "out_capacity 0":
+        assert n > 0
+    for outs, cnt, d_first in (first, second):
+        _eq(cnt, ref_cnt)
+        _eq(d_first, ref_df)
+        for a, b in zip(outs, ref_outs):
+            _eq(a[:n], b[:n])
+
+
 @pytest.mark.parametrize("impl", ["lane", "sorted"])
 def test_join_on_card_matches_cpu(dev, impl):
     r = datagen.gen_relation_np(20_000, 8_000, payloads=2, seed=5)
@@ -215,13 +280,15 @@ def test_probe_walk_matches_plain(dev, k, depth, npart):
 
 @pytest.mark.parametrize("nplanes", [1, 16, 17])
 @pytest.mark.parametrize("n,bits", [(100_003, "mixed"), (4096 * 3 + 5, "zeros"),
-                                    (5000, "ones"), (1, "mixed")])
+                                    (5000, "ones"), (1, "mixed"),
+                                    (70_001, "any nonzero")])
 def test_split1_matches_plain(dev, n, bits, nplanes):
     """n not a multiple of the 4096-row block, n0 = n (all zeros) and
-    n0 = 0 (all ones); 17 planes take two scatter launches."""
+    n0 = 0 (all ones), bit values other than 0 and 1 (every nonzero value
+    is a 1); 17 planes take two scatter launches."""
     rng = np.random.default_rng(n)
     bit = {"mixed": rng.integers(0, 2, n), "zeros": np.zeros(n),
-           "ones": np.ones(n)}[bits]
+           "ones": np.ones(n), "any nonzero": rng.integers(-3, 4, n)}[bits]
     bit = torch.from_numpy(bit.astype(np.int32)).to(dev)
     planes = [torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n)
                                .astype(np.int32)).to(dev) for _ in range(nplanes)]
@@ -229,6 +296,56 @@ def test_split1_matches_plain(dev, n, bits, nplanes):
     out = _split1(planes, bit)
     assert _split1.launches == before + 1
     for a, b in zip(out, split1_ref(planes, bit)):
+        _eq(a, b)
+
+
+# digit-pass specs over (full-range, small, carried ids) planes: one
+# bit, a full 8-bit digit over three planes with a repeated bit, bits
+# of the carried ids, and a sort of 17 specs (8 + 8 + 1)
+DIGIT_SPECS = {
+    "one bit": [(0, 31)],
+    "8 bits over 3 planes": [(0, 3), (0, 31), (1, 0), (0, 17), (0, 17), (2, 1), (1, 2),
+                             (0, 0)],
+    "7 bits": [(0, b) for b in range(7)],
+    "ids": [(2, 0), (2, 1), (2, 12)],
+    "one digit for all": [(3, b) for b in range(8)],
+}
+
+
+@pytest.mark.parametrize("specs", list(DIGIT_SPECS))
+@pytest.mark.parametrize("n", [2_097_152, 100_003, 4096 * 3 + 5, 1])
+def test_split_digit_matches_plain(dev, n, specs):
+    """One launch-counted pass per call, byte-equal to the plain version
+    (the group's one-bit splits): negative planes, n a multiple of the
+    4,096-row tile and not, n = 1, every row of one digit."""
+    rng = np.random.default_rng(n + len(specs))
+    planes = [rng.integers(-(1 << 31), 1 << 31, n), rng.integers(-4, 4, n),
+              np.arange(n), np.full(n, -1)]
+    planes += [rng.integers(-(1 << 31), 1 << 31, n) for _ in range(4)]
+    planes = [torch.from_numpy(p.astype(np.int32)).to(dev) for p in planes]
+    before = split_digit.launches
+    out = split_digit(planes, DIGIT_SPECS[specs])
+    assert split_digit.launches == before + 1
+    for a, b in zip(out, split_digit_ref(planes, DIGIT_SPECS[specs])):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 17])
+def test_lsd_radix_sort_bits_on_card_matches_plain(dev, length):
+    """ceil(length / 8) kernel passes, the same planes as one plain split
+    per spec, 17 planes (two scatter launches a pass)."""
+    rng = np.random.default_rng(length)
+    n = 300_001
+    planes = [torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32))
+              .to(dev) for _ in range(17)]
+    specs = [(int(i % 3), int(b)) for i, b in enumerate(rng.integers(0, 32, length))]
+    before = split_digit.launches
+    got = lsd_radix_sort_bits(planes, specs)
+    assert split_digit.launches == before + digit_passes(length)
+    want = planes
+    for spec in specs:
+        want = split1_ref(want, (want[spec[0]] >> spec[1]) & 1)
+    for a, b in zip(got, want):
         _eq(a, b)
 
 
@@ -289,11 +406,11 @@ def test_radix_merge_on_card_matches_cpu(dev):
     s = datagen.gen_relation_np(30_000, 8_000, payloads=1, seed=6)
     r["key"][:500] -= 1 << 40
     s["key"][:700] -= 1 << 40
-    before = _split1.launches
+    before = split_digit.launches
     on_card = merge_join(Table.from_numpy(r, device=dev),
                          Table.from_numpy(s, device=dev), 1 << 17,
                          sort_engine="radix")
-    assert _split1.launches == before + 66
+    assert split_digit.launches == before + digit_passes(len(union_sort_specs(64)))
     on_cpu = merge_join(Table.from_numpy(r, device="cpu"),
                         Table.from_numpy(s, device="cpu"), 1 << 17,
                         sort_engine="radix")

@@ -19,7 +19,7 @@ from tpq_torch.kernels import radix_sort
 from tpq_torch.kernels.lane2 import lane2_path_taken
 from tpq_torch.kernels.lane_table import LanePlan
 from tpq_torch.ops import hash_join
-from tpq_torch.ops.union_join import union_join
+from tpq_torch.ops.union_join import union_join, union_sort_specs
 
 from conftest import assert_tables_equal
 
@@ -166,24 +166,25 @@ def test_runner_smoke_1k_on_cpu():
 
 def test_runner_cli_selects_the_radix_merge(monkeypatch):
     """--algo and --sort-engine reach the runner's join: the radix merge
-    runs its 66 split passes, labels its row by its engine and gives the
-    lax engine's rows."""
+    runs one digit pass per 8 of its 66 bit specs, labels its row by its
+    engine and gives the lax engine's rows."""
     passes = []
 
-    def split(planes, bit, _split=radix_sort._split1):
-        passes.append(1)
-        return _split(planes, bit)
+    def split(planes, specs, _split=radix_sort.split_digit):
+        passes.append(len(specs))
+        return _split(planes, specs)
 
-    monkeypatch.setattr(radix_sort, "_split1", split)
+    monkeypatch.setattr(radix_sort, "split_digit", split)
     p = argparse.ArgumentParser()
     add_join_args(p)
     cfg = config_from_args(p.parse_args(["--config=smoke_1k", "--algo=merge",
                                          "--sort-engine=radix"]))
     rep = run_config(cfg, device="cpu")
-    assert rep["ops"][0]["op"] == "join_merge_radix" and len(passes) == 66
+    assert rep["ops"][0]["op"] == "join_merge_radix"
+    assert passes == [8] * 8 + [2] and len(union_sort_specs(64)) == sum(passes) == 66
     lax = run_config(replace(cfg, join=replace(cfg.join, sort_engine="lax")),
                      device="cpu")
-    assert lax["ops"][0]["op"] == "join_merge_lax" and len(passes) == 66
+    assert lax["ops"][0]["op"] == "join_merge_lax" and len(passes) == 9
     assert rep["out_rows"] == lax["out_rows"] > 0
     assert_tables_equal(canonicalize(rep["output"]), canonicalize(lax["output"]))
 

@@ -134,6 +134,23 @@ def test_fused_walk_emit_on_tpq_tables(tpq_lane):
     assert_tables_equal(canonicalize(ours), jcanonicalize(theirs), "inline rows")
 
 
+@pytest.mark.parametrize("cap", [0, 101, CAP])
+def test_fused_walk_emit_drops_rows_past_capacity(tpq_lane, cap):
+    """On tpq's tables, cnt and d_first are tpq's at any out_capacity, and
+    the rows below it are those of an uncut run: rows at or past it are
+    dropped, none moves (the contract the card's kernel is held to)."""
+    tables = lane_tables_from_numpy(tpq_lane["plan"], tpq_lane["key_planes"],
+                                    tpq_lane["pay_planes"], tpq_lane["occ"],
+                                    tpq_lane["ok"], device="cpu")
+    s = Table.from_numpy(S_NP, device="cpu")
+    full, cut = fused_probe_emit2(tables, s, CAP), fused_probe_emit2(tables, s, cap)
+    np.testing.assert_array_equal(cut[1].numpy(), tpq_lane["cnt"])
+    np.testing.assert_array_equal(cut[2].numpy(), tpq_lane["d_first"])
+    assert all(o.shape[0] == cap for o in cut[0])
+    for a, b in zip(cut[0], full[0]):
+        assert torch.equal(a, b[:cap])
+
+
 def test_port_build_walks_like_tpq_build(tpq_lane):
     """The port's own tables give the fused kernel the same results as
     tpq's tables passed across."""

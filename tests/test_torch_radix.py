@@ -1,10 +1,12 @@
 """tpq_torch's LSD radix sort and radix-engine merge join: the 1-bit split
-(kernel 6, plain torch version here) and lsd_radix_sort_bits against
-tpq's (interpret-mode Pallas, run once in a module fixture), the other
-sorts against numpy stable sorts, and merge_join(sort_engine="radix")
-against the port's lax engine and the C++ oracle. tpq's radix merge
-join is not called (322 s cold). Integer data: every comparison is
-exact (tolerance 0)."""
+and the digit pass (kernel 6, plain torch versions here) and
+lsd_radix_sort_bits in digit passes against tpq's one split per bit spec
+(interpret-mode Pallas, run once in a module fixture), the digit pass
+against numpy's stable argsort by the digit, the other sorts against
+numpy stable sorts, and merge_join(sort_engine="radix") against the
+port's lax engine and the C++ oracle. tpq's radix merge join is not
+called (322 s cold). Integer data: every comparison is exact
+(tolerance 0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +16,10 @@ import torch
 from tpq.kernels import radix_sort as jradix
 from tpq_torch import Table, colio, datagen
 from tpq_torch.columnar import canonicalize
-from tpq_torch.kernels.radix_sort import (_split1, lsd_radix_sort,
+from tpq_torch.kernels import radix_sort as radix
+from tpq_torch.kernels.radix_sort import (_split1, digit_passes, lsd_radix_sort,
                                           lsd_radix_sort_bits, radix_sort_perm,
-                                          sort_rows)
+                                          sort_rows, split_digit, split_digit_ref)
 from tpq_torch.ops import merge_join
 from tpq_torch.ops.merge_join import sort_table_by_key
 
@@ -37,10 +40,23 @@ SPLIT_PLANES = [_RNG.integers(-(1 << 31), 1 << 31, N).astype(np.int32), IDX]
 SPLIT_BITS = {"mixed": (np.arange(N) % 3 == 0).astype(np.int32),
               "all ones": np.ones(N, np.int32), "all zeros": np.zeros(N, np.int32)}
 
+# digit passes: full-range planes with negative values (bit 31 taken),
+# a small-valued plane and the carried row ids; every prefix length in
+# GROUP_LENGTHS is a sequence of its own. The first 7 specs span three
+# planes, repeat bit 17 of plane 0 and take a bit of the carried ids.
+G = 700
+GROUP_PLANES = [_RNG.integers(-(1 << 31), 1 << 31, G).astype(np.int32),
+                _RNG.integers(0, 16, G).astype(np.int32),
+                np.arange(G, dtype=np.int32)]
+GROUP_SPECS = [(0, 3), (0, 31), (1, 0), (0, 17), (0, 17), (2, 1), (1, 2), (0, 0),
+               (2, 0), (1, 3), (0, 8), (0, 9), (0, 10), (1, 1), (2, 5), (0, 30), (0, 31)]
+GROUP_LENGTHS = (1, 7, 8, 9, 17)
+
 
 @pytest.fixture(scope="module")
 def tpq_radix():
-    """tpq's lsd_radix_sort_bits and its _split1 (n0 = some, 0, n), once."""
+    """tpq's lsd_radix_sort_bits and its _split1 (n0 = some, 0, n), once;
+    tpq's sort after each prefix of GROUP_SPECS (one split a spec)."""
     sort = jradix.lsd_radix_sort_bits(
         [jnp.asarray(A), jnp.asarray(B), jnp.asarray(IDX)], SPECS)
     splits = {}
@@ -48,7 +64,12 @@ def tpq_radix():
         n0 = int((bit == 0).sum())
         splits[name] = [np.asarray(x) for x in jradix._split1(
             [jnp.asarray(p) for p in SPLIT_PLANES], jnp.asarray(bit), jnp.int32(n0))]
-    return {"sort": [np.asarray(x) for x in sort], "splits": splits}
+    groups, planes = {}, [jnp.asarray(p) for p in GROUP_PLANES]
+    for i, spec in enumerate(GROUP_SPECS, 1):
+        planes = jradix.lsd_radix_sort_bits(planes, [spec])
+        if i in GROUP_LENGTHS:
+            groups[i] = [np.asarray(x) for x in planes]
+    return {"sort": [np.asarray(x) for x in sort], "splits": splits, "groups": groups}
 
 
 def test_lsd_radix_sort_bits_matches_tpq(tpq_radix):
@@ -67,6 +88,71 @@ def test_split1_matches_tpq(tpq_radix, bits):
         np.testing.assert_array_equal(mine.numpy(), theirs)
     order = np.argsort(bit, kind="stable")
     np.testing.assert_array_equal(out[1].numpy(), order)
+
+
+@pytest.mark.parametrize("digit_bits", [8, 3])
+@pytest.mark.parametrize("length", GROUP_LENGTHS)
+def test_lsd_radix_sort_bits_digit_passes_match_tpq(tpq_radix, monkeypatch, length,
+                                                    digit_bits):
+    """The specs sorted digit_bits a pass (the last pass short) give tpq's
+    one split per spec, and the passes counted are ceil(specs / bits)."""
+    passes = []
+
+    def count(planes, specs):
+        passes.append(len(specs))
+        return split_digit(planes, specs)
+
+    monkeypatch.setattr(radix, "split_digit", count)
+    out = lsd_radix_sort_bits([torch.from_numpy(p) for p in GROUP_PLANES],
+                              GROUP_SPECS[:length], digit_bits=digit_bits)
+    assert len(passes) == digit_passes(length, digit_bits) and sum(passes) == length
+    assert max(passes) <= digit_bits
+    for mine, theirs in zip(out, tpq_radix["groups"][length]):
+        np.testing.assert_array_equal(mine.numpy(), theirs)
+
+
+def _digit_np(planes, specs):
+    d = np.zeros(planes[0].shape[0], np.int64)
+    for i, (pi, b) in enumerate(specs):
+        d |= ((planes[pi].astype(np.int64) >> b) & 1) << i
+    return d
+
+
+@pytest.mark.parametrize("case", ["one bit", "8 bits over 3 planes", "repeated bits",
+                                  "one digit for all", "n = 1", "bit of the ids"])
+def test_split_digit_ref_matches_numpy_argsort(case):
+    """The plain digit pass (the group's one-bit splits in order) is a
+    stable sort by the digit the kernel forms, every plane carried."""
+    rng = np.random.default_rng(len(case))
+    n = 1 if case == "n = 1" else 5000
+    planes = [rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32),
+              rng.integers(-4, 4, n).astype(np.int32),
+              np.full(n, -7, np.int32), np.arange(n, dtype=np.int32)]
+    specs = {"one bit": [(0, 31)],
+             "8 bits over 3 planes": [(0, 0), (1, 1), (0, 31), (1, 31), (3, 0), (0, 7),
+                                      (1, 0), (0, 15)],
+             "repeated bits": [(0, 4), (0, 4), (1, 2), (1, 2), (0, 4)],
+             "one digit for all": [(2, b) for b in range(8)],
+             "n = 1": [(0, 1), (1, 2)],
+             "bit of the ids": [(3, 2), (3, 0), (0, 9)]}[case]
+    out = split_digit([torch.from_numpy(p) for p in planes], specs)
+    order = np.argsort(_digit_np(planes, specs), kind="stable")
+    for mine, p in zip(out, planes):
+        np.testing.assert_array_equal(mine.numpy(), p[order])
+
+
+def test_digit_runs_join_consecutive_bits_of_one_plane():
+    a, b = torch.zeros(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)
+    runs = radix.digit_runs([(a, 3), (a, 4), (a, 5), (b, 0), (a, 6), (a, 6), (a, 7)])
+    assert [(src is a, first, n) for src, first, n in runs] == [
+        (True, 3, 3), (False, 0, 1), (True, 6, 1), (True, 6, 2)]
+
+
+def test_split_digit_checks_its_specs():
+    planes = [torch.zeros(10, dtype=torch.int32)]
+    for specs in ([], [(0, 0)] * 9, [(1, 0)], [(0, 32)]):
+        with pytest.raises(ValueError):
+            split_digit(planes, specs)
 
 
 def test_lsd_radix_sort_matches_numpy():
@@ -138,10 +224,11 @@ def _negative_case():
 def test_merge_join_radix_matches_lax_and_oracle(oracle, tmp_path):
     r, s = _negative_case()
     R, S = Table.from_numpy(r, device="cpu"), Table.from_numpy(s, device="cpu")
-    before = _split1.launches
+    before = split_digit.launches, _split1.launches
     a = merge_join(R, S, 1 << 13)
     b = merge_join(R, S, 1 << 13, sort_engine="radix", key_bits=64)
-    assert _split1.launches == before  # the plain version: no kernel here
+    # the plain version: no kernel here
+    assert (split_digit.launches, _split1.launches) == before
     assert int(a.num_rows) == int(b.num_rows) > 0
     assert_tables_equal(canonicalize(b), canonicalize(a), "radix vs lax")
     assert_tables_equal(canonicalize(b), _oracle_merge(oracle, tmp_path, r, s),

@@ -11,6 +11,8 @@ and the turn.
 CLI (needs a card):
   python -m tpq_torch.bench.ab --before=DIR --after=DIR \\
       [--config=single_chip_1m --config=zipf_skew ...] [--rounds=N] [--out=FILE]
+(a --config value may carry the profile's join options after the preset,
+e.g. --config="single_chip_1m --algo=merge --sort-engine=radix")
 (`--rounds=N` repeats the four turns N times: 2N runs of each tree)
 (the parent commit unpacked with `git archive` into a git-ignored
 directory makes a `before` tree)
@@ -28,8 +30,9 @@ ORDER = ("before", "after", "after", "before")
 
 
 def profile(root: str, config: str) -> dict:
+    preset, *options = config.split()
     res = subprocess.run([sys.executable, "-m", "tpq_torch.bench.profile",
-                          f"--config={config}"], cwd=root, capture_output=True,
+                          f"--config={preset}", *options], cwd=root, capture_output=True,
                          text=True, env={**os.environ, "PYTHONPATH": root})
     if res.returncode != 0:
         raise RuntimeError(f"profile of {config} in {root} failed "

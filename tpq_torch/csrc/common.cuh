@@ -1,5 +1,6 @@
 // Shared pieces of the port's CUDA kernels: the by-value column list
-// that PAD and PACK take, and a block-wide exclusive scan.
+// that PAD and PACK take, a block-wide exclusive scan, and the
+// decoupled look-back of PACK and the fused walk/emit.
 #pragma once
 
 #include <cstdint>
@@ -59,26 +60,55 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
   return excl;
 }
 
-#define TPQ_SCAN_THREADS 1024
+// Single-pass scans with decoupled look-back (Merrill & Garland, 2016),
+// shared by PACK and the fused walk/emit. Work items (tiles) are taken
+// in order through an atomic ticket, so an item's predecessors are held
+// by running blocks and waiting on them cannot deadlock. An item's
+// status is one 64-bit word, call epoch << 32 | inclusive flag << 31 |
+// count, written with st.release and read with ld.acquire, so no reader
+// sees a torn pair; the epoch makes the words of earlier calls read as
+// not yet written, so nothing is reset between calls.
+constexpr uint64_t kTagMask = 0xffffffff00000000ull;
+constexpr uint64_t kInclusive = 1ull << 31;
+constexpr uint64_t kCountMask = kInclusive - 1;
 
-// Exclusive scan of n ints by ONE block of TPQ_SCAN_THREADS threads,
-// looping over chunks with a running carry; *total gets the sum. The
-// block offsets of the walk/emit kernel and of the split come from here,
-// never from atomics, so rows land in the same order on every run.
-// (static: each .cu file that launches it holds its own copy)
-static __global__ void scan_exclusive_one_block(const int32_t* __restrict__ in,
-                                                int64_t n,
-                                                int32_t* __restrict__ out,
-                                                int32_t* __restrict__ total) {
-  __shared__ int32_t warp_sums[32];
-  int32_t carry = 0;  // identical in every thread
-  for (int64_t base = 0; base < n; base += blockDim.x) {
-    const int64_t k = base + threadIdx.x;
-    const int32_t v = k < n ? in[k] : 0;
-    int32_t chunk;
-    const int32_t excl = block_exclusive_scan(v, warp_sums, &chunk);
-    if (k < n) out[k] = carry + excl;
-    carry += chunk;
+static __device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+static __device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// Warp 0 of a block, all lanes: publishes item t's count `agg`, looks
+// back over its predecessors 32 at a time, adding counts until it meets
+// an inclusive prefix, publishes its own and returns the exclusive one.
+static __device__ int64_t look_back(uint64_t* status, int64_t t, uint32_t agg,
+                                    uint64_t tag) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) st_release(&status[0], tag | kInclusive | agg);
+    return 0;
   }
-  if (threadIdx.x == 0) *total = carry;
+  if (lane == 0) st_release(&status[t], tag | agg);
+  int64_t prefix = 0;
+  for (int64_t top = t - 1;; top -= 32) {
+    const int64_t i = top - lane;  // lane 0 is the nearest predecessor
+    uint64_t w;
+    bool ready;
+    do {
+      w = i >= 0 ? ld_acquire(&status[i]) : (tag | kInclusive);
+      ready = (w & kTagMask) == tag;
+    } while (!__all_sync(0xffffffffu, ready));
+    const unsigned incl = __ballot_sync(0xffffffffu, (w & kInclusive) != 0);
+    const int last = incl ? __ffs(incl) - 1 : 31;  // nearest inclusive lane
+    int64_t s = lane <= last ? int64_t(w & kCountMask) : 0;
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    prefix += s;
+    if (incl) break;
+  }
+  if (lane == 0) st_release(&status[t], tag | kInclusive | uint64_t(prefix + agg));
+  return prefix;
 }

@@ -13,35 +13,61 @@
 // The TPU kernel walks (32,128) query tiles against VMEM-resident table
 // windows and packs rows through a shift network with async staged
 // flushes, because Mosaic can only gather along the 128 lanes of a vreg
-// row. Here a CTA takes one (partition, 1024-query chunk):
-//   * it stages the partition's key tile, D*128 int64 (49,152 B at D=48,
-//     above the 48 KB static limit, hence dynamic shared memory raised
-//     with cudaFuncSetAttribute), and the [128] bucket lengths, which the
-//     build computes once in place of tpq's per-call column sum of occ;
-//   * build payloads are NOT staged: at four int64 payload columns they
-//     would not fit beside the keys at D=48 (240 KB > 227 KB). A match
-//     reads them from device memory, at most K reads per query;
-//   * emit offsets come from a scan (walk -> one-block scan of per-CTA
-//     row counts -> emit), never from atomics, so the output is the same
-//     on every run. Rows go out in (padded query, j) order; rows at or
-//     past out_capacity are dropped (the caller sees the overflow in its
-//     totals).
-//
-// Bound: the walk reads every padded query (key, lane, occ: 16 B) and
-// each partition's key tile once per chunk, mostly from L2; the emit
-// reads them again and writes the output rows. Shared-memory reads of
-// the walk (about blen per query) are the inner loop.
+// row. walk_emit_kernel does the walk and the emit in one launch:
+//   * a CTA takes one work item: `chunk` (at most 4,096) padded queries
+//     of one partition. The wrapper picks it from a whole partition,
+//     2,048 and 1,024 by the waves of CTAs each size needs on the card
+//     (config 5's 16,384 partitions of 3,072 queries: whole partitions;
+//     config 1's 512: 1,024 queries). Work items are handed out in
+//     (partition, chunk) order by an atomic ticket, not by blockIdx, so
+//     an item's predecessors are held by CTAs that started first;
+//   * one thread copies the partition's key tile (D*128 int64, 49,152 B
+//     at D 48) and its 128 bucket lengths (computed once at build in
+//     place of tpq's per-call column sum of occ) into dynamic shared
+//     memory with the Tensor Memory Accelerator (cp.async.bulk,
+//     completing on an mbarrier), while every thread loads its first
+//     queries (key, lane, occ) into registers. The one partition of the
+//     config-3 heavy table spans many CTAs; each copies the tile again,
+//     from L2 after the first (64 KB at D 64), which is simpler than a
+//     cluster multicast for the same DRAM bytes;
+//   * build payload tiles are not staged: a match reads its payload from
+//     device memory, one 32-byte sector, and the matches of a partition
+//     touch fewer distinct sectors than its whole payload tile holds
+//     (about 1,100 of 1,536 at config 1, 700 at config 5), while staging
+//     the tile would also cost a CTA per SM;
+//   * each thread walks its queries (striped over the CTA, so the loads
+//     coalesce), writes cnt and d_first and keeps the first K match
+//     depths and the lane of each query in shared memory, so the emit
+//     neither reads the queries again nor walks again; a dead query
+//     costs its loads and the two stores;
+//   * the CTA's rows are counted by one block scan over its queries and
+//     placed by a single-pass scan with decoupled look-back over the
+//     work items (look_back in common.cuh, with PACK's 64-bit (epoch,
+//     flag, count) statuses in a buffer kept per device and stream; the
+//     CTA with the last ticket rearms the counter, the last work item
+//     writes total_inline), never by atomics: rows go out in (padded
+//     query, j) order, the same bytes on every run;
+//   * the CTA's rows [offset, offset + rows) are written by row, not by
+//     query: a thread takes two neighbouring rows, finds each one's query
+//     by binary search over the scanned counts and stores every column
+//     of the pair as one aligned 16-byte store, so each column's range
+//     is written contiguously. Rows at or past out_capacity are dropped.
+// Bound by bytes: every padded query read once (key, lane, occ: 16 B),
+// each partition's key tile and bucket lengths once, cnt and d_first and
+// every emitted row written once, a build payload (a sector) and the
+// probe payloads read per emitted row.
 //
 // probe_walk_kernel is the walk-only probe, the port of
 // tpq/kernels/lane_table.py _probe_kernel (wrapper probe_lane_tables),
-// which the skew join's membership probe runs. It stages the same tile
-// as the walk launch and writes, per padded query, cnt, d_first and the
-// build payloads of its first K matches (0 past cnt and for dead
-// queries), each read from device memory on a match. Bound by bytes:
-// it reads each query (key, lane, occ: 16 B) once and writes 8 B plus
-// 8 B per (rank, payload column); the key tile comes from L2 for all
-// but the first CTA of a partition. With no payload columns (the
-// key-only list table of the skew join) only cnt and d_first go out.
+// which the skew join's membership probe runs. It stages the key tile
+// with a plain copy loop (stage_tile) per 1,024-query chunk and writes,
+// per padded query, cnt, d_first and the build payloads of its first K
+// matches (0 past cnt and for dead queries), each read from device
+// memory on a match. Bound by bytes: it reads each query (key, lane,
+// occ: 16 B) once and writes 8 B plus 8 B per (rank, payload column);
+// the key tile comes from L2 for all but the first CTA of a partition.
+// With no payload columns (the key-only list table of the skew join)
+// only cnt and d_first go out.
 
 #include "common.cuh"
 
@@ -50,14 +76,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChunk = 1024;  // queries per CTA
 constexpr int kLanes = 128;
-
-struct EmitCols {
-  const int64_t* tpay[TPQ_MAX_COLS];  // build payloads [npart, D, 128]
-  const int64_t* spay[TPQ_MAX_COLS];  // probe payloads [u]
-  int64_t* out_r[TPQ_MAX_COLS];
-  int64_t* out_s[TPQ_MAX_COLS];
-  int nr, ns;
-};
 
 __device__ __forceinline__ void stage_tile(int64_t* s_key, int32_t* s_blen,
                                            const int64_t* __restrict__ t_key,
@@ -75,47 +93,6 @@ __device__ __forceinline__ void stage_tile(int64_t* s_key, int32_t* s_blen,
 __device__ __forceinline__ int2 cta_chunk(int probe_cap) {
   const int chunks = (probe_cap + kChunk - 1) / kChunk;
   return make_int2(int(blockIdx.x / chunks), int(blockIdx.x % chunks) * kChunk);
-}
-
-__global__ void walk_kernel(const int64_t* __restrict__ t_key,
-                            const int32_t* __restrict__ blen,
-                            const int64_t* __restrict__ qk,
-                            const int32_t* __restrict__ lane,
-                            const int32_t* __restrict__ qocc, int D, int K,
-                            int probe_cap, int32_t* __restrict__ cnt_out,
-                            int32_t* __restrict__ dfirst_out,
-                            int32_t* __restrict__ block_rows) {
-  extern __shared__ int64_t s_key[];
-  __shared__ int32_t s_blen[kLanes];
-  __shared__ int32_t warp_sums[32];
-  const int2 pc = cta_chunk(probe_cap);
-  const int p = pc.x;
-  stage_tile(s_key, s_blen, t_key, blen, p, D);
-
-  int32_t rows = 0;
-  for (int it = 0; it < kChunk / kThreads; it++) {
-    const int qi = pc.y + it * kThreads + threadIdx.x;
-    if (qi >= probe_cap) break;
-    const int64_t q = int64_t(p) * probe_cap + qi;
-    int c = 0, df = -1;
-    if (qocc[q] > 0) {
-      const int l = lane[q];
-      const int64_t key = qk[q];
-      const int bl = s_blen[l];
-      for (int d = 0; d < bl; d++) {
-        if (s_key[d * kLanes + l] == key) {
-          if (c == 0) df = d;
-          c++;
-        }
-      }
-    }
-    cnt_out[q] = c;
-    dfirst_out[q] = df;
-    rows += min(c, K);
-  }
-  int32_t total;
-  block_exclusive_scan(rows, warp_sums, &total);
-  if (threadIdx.x == 0) block_rows[blockIdx.x] = total;
 }
 
 constexpr int kMaxK = 8;  // MAX_K in tpq_torch/kernels/lane_table.py
@@ -168,45 +145,227 @@ __global__ void probe_walk_kernel(const int64_t* __restrict__ t_key,
   }
 }
 
-__global__ void emit_kernel(const int64_t* __restrict__ t_key,
-                            const int32_t* __restrict__ blen,
-                            const int64_t* __restrict__ qk,
-                            const int32_t* __restrict__ lane,
-                            const int32_t* __restrict__ cnt,
-                            const int32_t* __restrict__ dfirst, int D, int K,
-                            int probe_cap,
-                            const int32_t* __restrict__ block_offsets,
-                            EmitCols cols, int64_t* __restrict__ out_key,
-                            int64_t out_capacity) {
-  extern __shared__ int64_t s_key[];
-  __shared__ int32_t s_blen[kLanes];
-  __shared__ int32_t warp_sums[32];
-  const int2 pc = cta_chunk(probe_cap);
-  const int p = pc.x;
-  stage_tile(s_key, s_blen, t_key, blen, p, D);
+// ---------------------------------------------------------------------------
+// the fused walk/emit
+// ---------------------------------------------------------------------------
 
-  int64_t run = block_offsets[blockIdx.x];
-  for (int it = 0; it < kChunk / kThreads; it++) {
-    const int qi = pc.y + it * kThreads + threadIdx.x;
-    const int64_t q = int64_t(p) * probe_cap + qi;
-    const int c = qi < probe_cap ? min(cnt[q], K) : 0;
-    int32_t chunk;
-    const int64_t o = run + block_exclusive_scan(c, warp_sums, &chunk);
-    run += chunk;
-    if (c == 0) continue;
-    const int l = lane[q];
-    const int64_t key = qk[q];
-    const int bl = s_blen[l];
-    int j = 0;
-    for (int d = dfirst[q]; d < bl && j < c; d++) {
-      if (s_key[d * kLanes + l] != key) continue;
-      const int64_t row = o + j++;
-      if (row >= out_capacity) break;
-      const int64_t slot = (int64_t(p) * D + d) * kLanes + l;
-      out_key[row] = key;
-      for (int i = 0; i < cols.nr; i++) cols.out_r[i][row] = cols.tpay[i][slot];
-      for (int i = 0; i < cols.ns; i++) cols.out_s[i][row] = cols.spay[i][q];
+constexpr int kEmitThreads = 256;
+constexpr int kMaxChunk = 4096;  // queries per work item: MAX_CHUNK in kernels/lane2.py
+constexpr int kBatch = 4;        // queries a thread loads before walking them
+
+struct EmitCols {
+  const int64_t* tpay[TPQ_MAX_COLS];  // build payloads [npart, D, 128]
+  const int64_t* spay[TPQ_MAX_COLS];  // probe payloads [u]
+  int64_t* out_r[TPQ_MAX_COLS];
+  int64_t* out_s[TPQ_MAX_COLS];
+  int nr, ns;
+};
+
+// Byte offsets of the dynamic shared memory of a work item of `chunk`
+// queries: the key tile, the bucket lengths, the scanned row counts
+// (uint16, chunk + 1), the first K depths per query and each query's lane.
+struct EmitSmem {
+  int blen, lo, dep, lane, bytes;
+};
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ inline EmitSmem emit_smem(int D, int K, int chunk) {
+  EmitSmem s;
+  s.blen = D * kLanes * 8;
+  s.lo = s.blen + kLanes * 4;
+  s.dep = s.lo + align16((chunk + 1) * 2);
+  s.lane = s.dep + align16(chunk * K);
+  s.bytes = s.lane + align16(chunk);
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return uint32_t(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(1)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// global -> shared, `bytes` a multiple of 16, both addresses 16-byte aligned
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// The query of the work item's row r: the last q with lo[q] <= r (a
+// query with rows is the last of its equal offsets).
+__device__ __forceinline__ int row_query(const uint16_t* lo, int qn, int r) {
+  int a = 0, b = qn;
+  while (b - a > 1) {
+    const int m = (a + b) >> 1;
+    if (int(lo[m]) <= r) a = m; else b = m;
+  }
+  return a;
+}
+
+__device__ __forceinline__ void store_pair(int64_t* __restrict__ dst, int64_t g0, bool in0,
+                                           bool in1, int64_t a, int64_t b) {
+  if (in0 && in1)
+    *reinterpret_cast<longlong2*>(dst + g0) = make_longlong2(a, b);
+  else if (in0)
+    dst[g0] = a;
+  else if (in1)
+    dst[g0 + 1] = b;
+}
+
+// state[0] is the ticket counter, state[1 + t] work item t's status.
+__global__ void __launch_bounds__(kEmitThreads)
+    walk_emit_kernel(const int64_t* __restrict__ t_key, const int32_t* __restrict__ blen,
+                     const int64_t* __restrict__ qk, const int32_t* __restrict__ lane,
+                     const int32_t* __restrict__ qocc, int D, int K, int probe_cap,
+                     int chunk, int64_t nwork, int32_t* __restrict__ cnt_out,
+                     int32_t* __restrict__ dfirst_out, EmitCols cols,
+                     int64_t* __restrict__ out_key, int64_t out_capacity,
+                     uint64_t* __restrict__ state, uint32_t epoch,
+                     int32_t* __restrict__ total_inline) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int64_t s_ticket, s_off;
+  __shared__ int32_t warp_sums[32];
+  const EmitSmem L = emit_smem(D, K, chunk);
+  const int64_t* s_key = reinterpret_cast<const int64_t*>(smem);
+  const int32_t* s_blen = reinterpret_cast<const int32_t*>(smem + L.blen);
+  uint16_t* s_lo = reinterpret_cast<uint16_t*>(smem + L.lo);
+  uint8_t* s_dep = smem + L.dep;
+  uint8_t* s_lane = smem + L.lane;
+
+  if (threadIdx.x == 0) {
+    const unsigned long long t =
+        atomicAdd(reinterpret_cast<unsigned long long*>(state), 1ull);
+    if (t == uint64_t(nwork) - 1)  // every CTA of the launch has its ticket
+      atomicExch(reinterpret_cast<unsigned long long*>(state), 0ull);
+    s_ticket = int64_t(t);
+    mbar_init(&bar);
+  }
+  __syncthreads();
+  const int64_t t = s_ticket;
+  const int chunks = (probe_cap + chunk - 1) / chunk;
+  const int64_t p = t / chunks;
+  const int c0 = int(t % chunks) * chunk;
+  const int qn = min(chunk, probe_cap - c0);
+  const int64_t q0 = p * probe_cap + c0;
+  if (threadIdx.x == 0) {
+    const uint32_t tile = uint32_t(D) * kLanes * 8;
+    mbar_expect_tx(&bar, tile + kLanes * 4);
+    bulk_load(smem, t_key + p * D * kLanes, tile, &bar);
+    bulk_load(smem + L.blen, blen + p * kLanes, kLanes * 4, &bar);
+  }
+
+  // walk: query q = k * kEmitThreads + threadIdx.x, kBatch values of k
+  // loaded at a time (the first batch while the tile is in flight)
+  const int nk = (qn + kEmitThreads - 1) / kEmitThreads;
+  int32_t b_occ[kBatch], b_lane[kBatch];
+  int64_t b_key[kBatch];
+  auto load_batch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kBatch; i++) {
+      const int q = (k0 + i) * kEmitThreads + threadIdx.x;
+      b_occ[i] = q < qn ? qocc[q0 + q] : 0;
+      b_lane[i] = q < qn ? lane[q0 + q] : 0;
+      b_key[i] = q < qn ? qk[q0 + q] : 0;
     }
+  };
+  load_batch(0);
+  mbar_wait(&bar, 0);
+  for (int k0 = 0; k0 < nk; k0 += kBatch) {
+    if (k0 > 0) load_batch(k0);
+#pragma unroll
+    for (int i = 0; i < kBatch; i++) {
+      const int q = (k0 + i) * kEmitThreads + threadIdx.x;
+      if (q >= qn) break;
+      int c = 0, df = -1;
+      if (b_occ[i] > 0) {
+        const int l = b_lane[i];
+        const int64_t key = b_key[i];
+        const int bl = s_blen[l];
+        for (int d = 0; d < bl; d++) {
+          if (s_key[d * kLanes + l] == key) {
+            if (c == 0) df = d;
+            if (c < K) s_dep[q * K + c] = uint8_t(d);
+            c++;
+          }
+        }
+        s_lane[q] = uint8_t(l);
+      }
+      cnt_out[q0 + q] = c;
+      dfirst_out[q0 + q] = df;
+      s_lo[q] = uint16_t(min(c, K));
+    }
+  }
+  __syncthreads();
+
+  // the work item's rows per query, scanned in place; s_lo[qn] = rows
+  const int per = (qn + kEmitThreads - 1) / kEmitThreads;
+  const int a0 = threadIdx.x * per;
+  int32_t sum = 0;
+  for (int j = 0; j < per && a0 + j < qn; j++) sum += s_lo[a0 + j];
+  int32_t rows;
+  int32_t run = block_exclusive_scan(sum, warp_sums, &rows);
+  for (int j = 0; j < per && a0 + j < qn; j++) {
+    const int v = s_lo[a0 + j];
+    s_lo[a0 + j] = uint16_t(run);
+    run += v;
+  }
+  if (threadIdx.x == 0) s_lo[qn] = uint16_t(rows);
+  if (threadIdx.x < 32) {
+    const int64_t prefix = look_back(state + 1, t, uint32_t(rows), uint64_t(epoch) << 32);
+    if (threadIdx.x == 0) {
+      s_off = prefix;
+      if (t == nwork - 1) *total_inline = int32_t(prefix + rows);
+    }
+  }
+  __syncthreads();
+
+  // emit: output rows [off, end), two neighbouring rows a thread
+  const int64_t off = s_off;
+  const int64_t end = min(off + int64_t(rows), out_capacity);
+  for (int64_t g0 = 2 * ((off >> 1) + threadIdx.x); g0 < end; g0 += 2 * kEmitThreads) {
+    const bool in0 = g0 >= off, in1 = g0 + 1 < end;
+    const int r0 = int(g0 - off), r1 = r0 + 1;
+    const int qa = in0 ? row_query(s_lo, qn, r0) : 0;
+    const int qb = in1 ? row_query(s_lo, qn, r1) : 0;
+    const int64_t ga = q0 + qa, gb = q0 + qb;
+    const int64_t slot_a = (p * D + s_dep[qa * K + (in0 ? r0 - s_lo[qa] : 0)]) * kLanes + s_lane[qa];
+    const int64_t slot_b = (p * D + s_dep[qb * K + (in1 ? r1 - s_lo[qb] : 0)]) * kLanes + s_lane[qb];
+    store_pair(out_key, g0, in0, in1, in0 ? qk[ga] : 0, in1 ? qk[gb] : 0);
+    for (int i = 0; i < cols.nr; i++)
+      store_pair(cols.out_r[i], g0, in0, in1, in0 ? cols.tpay[i][slot_a] : 0,
+                 in1 ? cols.tpay[i][slot_b] : 0);
+    for (int i = 0; i < cols.ns; i++)
+      store_pair(cols.out_s[i], g0, in0, in1, in0 ? cols.spay[i][ga] : 0,
+                 in1 ? cols.spay[i][gb] : 0);
   }
 }
 
@@ -214,16 +373,37 @@ __global__ void emit_kernel(const int64_t* __restrict__ t_key,
 
 extern "C" {
 
-// Scratch: block_rows and block_offsets hold npart * ceil(probe_cap /
-// 1024) ints each, total_inline one int.
+// Dynamic shared memory of the fused walk/emit at (D, K, chunk).
+int tpq_walk_emit_smem(int D, int K, int chunk) { return emit_smem(D, K, chunk).bytes; }
+
+// CTAs of the fused walk/emit at (D, K, chunk) that the current card
+// holds at once.
+int tpq_walk_emit_slots(int D, int K, int chunk) {
+  const int smem = emit_smem(D, K, chunk).bytes;
+  cudaFuncSetAttribute(walk_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk_emit_kernel, kEmitThreads, smem);
+  return sms * per_sm;
+}
+
+// One work item per `chunk` (<= 4,096) padded queries of a partition.
+// state: state_words >= nwork + 1 words, zero before the first call and
+// left for the next call on the same stream with epoch + 1 (epoch >= 1).
+// t_key and blen 16-byte aligned; out columns 16-byte aligned.
 int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
-                  const int32_t* blen, int npart, int D, int K, int probe_cap,
+                  const int32_t* blen, int npart, int D, int K, int probe_cap, int chunk,
                   const int64_t* qk, const int32_t* lane, const int32_t* qocc,
-                  const int64_t* const* s_pays, int ns, int32_t* cnt,
-                  int32_t* dfirst, int64_t* out_key, int64_t* const* out_r,
-                  int64_t* const* out_s, int64_t out_capacity,
-                  int32_t* block_rows, int32_t* block_offsets,
-                  int32_t* total_inline, cudaStream_t stream) {
+                  const int64_t* const* s_pays, int ns, int32_t* cnt, int32_t* dfirst,
+                  int64_t* out_key, int64_t* const* out_r, int64_t* const* out_s,
+                  int64_t out_capacity, uint64_t* state, int64_t state_words,
+                  uint32_t epoch, int32_t* total_inline, cudaStream_t stream) {
+  if (K < 1 || K > kMaxK || chunk < 1 || chunk > kMaxChunk || nr < 0 ||
+      nr > TPQ_MAX_COLS || ns < 0 || ns > TPQ_MAX_COLS || npart < 1 || probe_cap < 1)
+    return int(cudaErrorInvalidValue);
+  const int64_t nwork = int64_t(npart) * ((probe_cap + chunk - 1) / chunk);
+  if (nwork + 1 > state_words) return int(cudaErrorInvalidValue);
   EmitCols cols;
   cols.nr = nr;
   cols.ns = ns;
@@ -235,22 +415,11 @@ int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
     cols.spay[i] = s_pays[i];
     cols.out_s[i] = out_s[i];
   }
-  const size_t smem = size_t(D) * kLanes * sizeof(int64_t);
-  cudaFuncSetAttribute(walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       int(smem));
-  cudaFuncSetAttribute(emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       int(smem));
-  const int chunks = (probe_cap + kChunk - 1) / kChunk;
-  const unsigned grid = unsigned(int64_t(chunks) * npart);
-  walk_kernel<<<grid, kThreads, smem, stream>>>(t_key, blen, qk, lane, qocc, D,
-                                                K, probe_cap, cnt, dfirst,
-                                                block_rows);
-  scan_exclusive_one_block<<<1, TPQ_SCAN_THREADS, 0, stream>>>(
-      block_rows, int64_t(chunks) * npart, block_offsets, total_inline);
-  emit_kernel<<<grid, kThreads, smem, stream>>>(t_key, blen, qk, lane, cnt,
-                                                dfirst, D, K, probe_cap,
-                                                block_offsets, cols, out_key,
-                                                out_capacity);
+  const int smem = emit_smem(D, K, chunk).bytes;
+  cudaFuncSetAttribute(walk_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  walk_emit_kernel<<<unsigned(nwork), kEmitThreads, smem, stream>>>(
+      t_key, blen, qk, lane, qocc, D, K, probe_cap, chunk, nwork, cnt, dfirst, cols,
+      out_key, out_capacity, state, epoch, total_inline);
   return int(cudaGetLastError());
 }
 

@@ -43,10 +43,9 @@
 //     warp scan;
 //   - warp 0 publishes the tile's count, then looks back over its
 //     predecessors 32 at a time, adding counts until it meets an
-//     inclusive prefix, and publishes its own. A status is one 64-bit
-//     word (call epoch << 32 | inclusive flag << 31 | count), written
-//     with st.release and read with ld.acquire, so no reader sees a torn
-//     pair;
+//     inclusive prefix, and publishes its own (look_back in
+//     common.cuh; a status is one 64-bit word, call epoch << 32 |
+//     inclusive flag << 31 | count);
 //   - each column of the tile is read in 16-byte loads (a sector holds
 //     four rows, so a dead neighbour costs no extra DRAM traffic),
 //     compacted in shared memory and stored coalesced at the tile's
@@ -212,51 +211,6 @@ constexpr int kPackRound = kPackThreads * 4;
 constexpr int64_t kPackTile = int64_t(kPackRound) * kPackRounds;  // PACK_TILE in move.py
 static_assert(kPackRounds * kPackWarps == 32, "one warp scans a tile's groups");
 
-constexpr uint64_t kTagMask = 0xffffffff00000000ull;
-constexpr uint64_t kInclusive = 1ull << 31;
-constexpr uint64_t kCountMask = kInclusive - 1;
-
-__device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(uint64_t* p, uint64_t v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-// Warp 0 of a PACK block, all lanes: publishes tile t's count `agg`,
-// looks back for the live rows before the tile, publishes the tile's
-// inclusive prefix and returns the exclusive one.
-__device__ int64_t pack_look_back(uint64_t* status, int64_t t, uint32_t agg,
-                                  uint64_t tag) {
-  const int lane = threadIdx.x & 31;
-  if (t == 0) {
-    if (lane == 0) st_release(&status[0], tag | kInclusive | agg);
-    return 0;
-  }
-  if (lane == 0) st_release(&status[t], tag | agg);
-  int64_t prefix = 0;
-  for (int64_t top = t - 1;; top -= 32) {
-    const int64_t i = top - lane;  // lane 0 is the nearest predecessor
-    uint64_t w;
-    bool ready;
-    do {
-      w = i >= 0 ? ld_acquire(&status[i]) : (tag | kInclusive);
-      ready = (w & kTagMask) == tag;
-    } while (!__all_sync(0xffffffffu, ready));
-    const unsigned incl = __ballot_sync(0xffffffffu, (w & kInclusive) != 0);
-    const int last = incl ? __ffs(incl) - 1 : 31;  // nearest inclusive lane
-    int64_t s = lane <= last ? int64_t(w & kCountMask) : 0;
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    prefix += s;
-    if (incl) break;
-  }
-  if (lane == 0) st_release(&status[t], tag | kInclusive | uint64_t(prefix + agg));
-  return prefix;
-}
-
 __device__ __forceinline__ void load4(const int32_t* p, int32_t (&v)[4]) {
   const int4 a = *reinterpret_cast<const int4*>(p);
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
@@ -382,7 +336,7 @@ __global__ void __launch_bounds__(kPackThreads)
       }
       group_off[lane] = x - c;
       const uint32_t agg = uint32_t(__shfl_sync(0xffffffffu, x, 31));
-      const int64_t prefix = pack_look_back(status, t, agg, tag);
+      const int64_t prefix = look_back(status, t, agg, tag);
       if (lane == 0) {
         out0 = prefix;
         tile_count = int(agg);

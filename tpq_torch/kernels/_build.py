@@ -34,10 +34,12 @@ _SIGNATURES = {
     # name: argtypes (restype is int: the cudaError_t of the launch)
     "tpq_pad": [P, P, P, I32, P, P, I32, I64, I64, P, P],
     "tpq_pack": [P, P, P, I32, P, I64, P, I64, U32, P, P],
-    "tpq_walk_emit": [P, P, I32, P, I32, I32, I32, I32, P, P, P, P, I32, P, P,
-                      P, P, P, I64, P, P, P, P],
+    "tpq_walk_emit": [P, P, I32, P, I32, I32, I32, I32, I32, P, P, P, P, I32, P,
+                      P, P, P, P, I64, P, I64, U32, P, P],
+    "tpq_walk_emit_smem": [I32, I32, I32],
+    "tpq_walk_emit_slots": [I32, I32, I32],
     "tpq_probe_walk": [P, P, I32, P, I32, I32, I32, I32, P, P, P, P, P, P, P],
-    "tpq_split1": [P, P, I32, P, I64, P, P, P, P],
+    "tpq_split_digit": [P, P, I32, P, P, P, I32, I32, I64, P, I64, P],
     "tpq_radix_histogram": [P, I64, I32, P, P],
     "tpq_copy": [P, P, I64, P],
 }
@@ -105,8 +107,6 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         so.tpq_error_string.argtypes = [ctypes.c_int]
         so.tpq_error_string.restype = ctypes.c_char_p
-        so.tpq_split1_tile.argtypes = []
-        so.tpq_split1_tile.restype = ctypes.c_int64
         _lib = so
     return _lib
 

@@ -8,8 +8,10 @@ take the same path. Build, probe layout, tail and the fallback contract
 live in lane_table.py; this module holds the plan, the kernel and the
 operator.
 
-`fused_walk_emit` runs tpq_torch/csrc/lane2.cu on CUDA tensors and
-`fused_walk_emit_ref`, its plain torch version, on CPU tensors. The
+`fused_walk_emit` runs tpq_torch/csrc/lane2.cu (one launch) on CUDA
+tensors and `fused_walk_emit_ref`, its plain torch version, on CPU
+tensors. Its look-back statuses share PACK's buffer, kept per device and
+stream (move._pack_state: each call takes a new epoch). The
 kernel emits rows in (padded query, j) order where tpq's emits
 (4096-query tile, j, position); the oracle contract compares rows after
 canonical ordering, and the plain version fixes the port's order
@@ -18,19 +20,48 @@ exactly.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.kernels import _build
-from tpq_torch.kernels.lane_table import (L, SMEM_LIMIT, LanePlan, LaneTables,
-                                          _probe_emit_common, _probe_layout,
-                                          build_lane_tables, walk_ref)
-from tpq_torch.kernels.move import MAX_COLS
+from tpq_torch.kernels.lane_table import (L, MAX_K, SMEM_LIMIT, LanePlan,
+                                          LaneTables, _probe_emit_common,
+                                          _probe_layout, build_lane_tables, walk_ref)
+from tpq_torch.kernels.move import MAX_COLS, _pack_state
 
 I32 = torch.int32
 I64 = torch.int64
 QROWS = 32  # tpq's query tile rows; the plan keeps its sizing rule
-CHUNK = 1024  # queries per CTA of the CUDA kernel (kChunk in lane2.cu)
+MAX_CHUNK = 4096  # padded queries per work item of the kernel (kMaxChunk in lane2.cu)
+# what a CTA of the walk/emit costs beside its queries, in queries: the
+# tile copy, the ticket and the look-back. Fitted to chip_smoke.py's
+# sweeps of queries per CTA (PERF.md): with it work_item_queries picks
+# the fastest size measured at configs 1 and 5 and at config 3's heavy
+# table (1,024, 3,072 and 4,096 queries).
+CTA_OVERHEAD_QUERIES = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas_at_once(device_index: int, depth: int, k: int, chunk: int) -> int:
+    """CTAs of the walk/emit at this work-item size the card holds at once."""
+    return _build.lib().tpq_walk_emit_slots(depth, k, chunk)
+
+
+def work_item_queries(plan: LanePlan, device_index: int) -> int:
+    """Padded queries per CTA of the walk/emit: of a whole partition (up
+    to MAX_CHUNK), 2,048 and 1,024, the size with the least waves x (CTA
+    overhead + queries), a wave being the CTAs the card holds at once."""
+    best = None
+    for chunk in sorted({min(plan.probe_cap, q) for q in (MAX_CHUNK, 2048, 1024)},
+                        reverse=True):
+        nwork = plan.npart * -(-plan.probe_cap // chunk)
+        ctas = max(1, _ctas_at_once(device_index, plan.depth, plan.inline_k, chunk))
+        cost = -(-nwork // ctas) * (CTA_OVERHEAD_QUERIES + chunk)
+        if best is None or cost < best[0]:
+            best = (cost, chunk)
+    return best[1]
 
 
 def plan_lane2(r_capacity: int, s_capacity: int, depth: int = 48,
@@ -89,7 +120,7 @@ def fused_walk_emit_ref(tables: LaneTables, qk, lane, qocc, spays,
 def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
                     out_capacity: int):
     """The fused walk+emit on the padded probe layout; see
-    fused_walk_emit_ref for the contract. Launches counted in
+    fused_walk_emit_ref for the contract. One kernel launch, counted in
     `.launches`."""
     if qk.device.type == "cpu":
         return fused_walk_emit_ref(tables, qk, lane, qocc, spays, out_capacity)
@@ -99,7 +130,11 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
     D, K, npart, probe_cap = plan.depth, plan.inline_k, plan.npart, plan.probe_cap
     u = npart * probe_cap
     dev = qk.device
-    if D * L * 8 + 1024 > SMEM_LIMIT:
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"fused_walk_emit: K {K} outside 1..{MAX_K}")
+    chunk = work_item_queries(plan, dev.index)
+    lib = _build.lib()
+    if lib.tpq_walk_emit_smem(D, K, chunk) + 1024 > SMEM_LIMIT:
         raise ValueError(f"fused_walk_emit: depth {D} does not fit shared memory")
     if len(tables.pays) > MAX_COLS or len(spays) > MAX_COLS:
         raise ValueError(f"fused_walk_emit: at most {MAX_COLS} payload columns")
@@ -112,10 +147,13 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
                              f"on {dev}, got {t.dtype}{tuple(t.shape)} on {t.device}")
         return t.contiguous()
 
+    def aligned(t):  # the tile copies read 16-byte aligned rows
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
     tshape = (npart, D, L)
-    t_key = need(tables.key, tshape, I64, "table key")
+    t_key = aligned(need(tables.key, tshape, I64, "table key"))
     t_pays = [need(t, tshape, I64, "table payload") for t in tables.pays]
-    blen = need(tables.blen, (npart, L), I32, "blen")
+    blen = aligned(need(tables.blen, (npart, L), I32, "blen"))
     qk = need(qk, (u,), I64, "query key")
     lane = need(lane, (u,), I32, "lane")
     qocc = need(qocc, (u,), I32, "qocc")
@@ -125,21 +163,20 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
     d_first = torch.empty(u, dtype=I32, device=dev)
     outs = [torch.empty(out_capacity, dtype=I64, device=dev)
             for _ in range(1 + len(t_pays) + len(spays))]
-    nblocks = npart * -(-probe_cap // CHUNK)
-    block_rows = torch.empty(nblocks, dtype=I32, device=dev)
-    block_offsets = torch.empty(nblocks, dtype=I32, device=dev)
     total_inline = torch.empty((), dtype=I32, device=dev)
-    with torch.cuda.device(dev):
-        code = _build.lib().tpq_walk_emit(
+    stream = _build.stream_of(qk)
+    nwork = npart * -(-probe_cap // chunk)
+    state, epoch = _pack_state(dev, stream, nwork + 1)
+    with _build.on_device(qk):
+        code = lib.tpq_walk_emit(
             t_key.data_ptr(), _build.ptr_array(t_pays), len(t_pays),
-            blen.data_ptr(), npart, D, K, probe_cap,
+            blen.data_ptr(), npart, D, K, probe_cap, chunk,
             qk.data_ptr(), lane.data_ptr(), qocc.data_ptr(),
             _build.ptr_array(spays), len(spays),
             cnt.data_ptr(), d_first.data_ptr(), outs[0].data_ptr(),
             _build.ptr_array(outs[1:1 + len(t_pays)]),
             _build.ptr_array(outs[1 + len(t_pays):]), out_capacity,
-            block_rows.data_ptr(), block_offsets.data_ptr(),
-            total_inline.data_ptr(), _build.stream_of(qk))
+            state.data_ptr(), state.numel(), epoch, total_inline.data_ptr(), stream)
     _build.check(code, "fused_walk_emit")
     fused_walk_emit.launches += 1
     return outs, cnt, d_first

@@ -78,6 +78,17 @@ def _stable_lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+def union_sort_specs(key_bits: int = 64) -> list[tuple[int, int]]:
+    """The radix engine's bit specs over the planes (invalid, key lo,
+    biased key hi, side, ...): side, key bits low to high, invalid."""
+    nb = min(key_bits, 64)
+    specs = [(3, 0)]
+    specs += [(1, b) for b in range(min(nb, 32))]
+    specs += [(2, b) for b in range(max(0, nb - 32))]
+    specs.append((0, 0))
+    return specs
+
+
 def _radix_union_sort(inv, k, side, vals: dict, key_bits: int):
     """The radix engine's union sort: LSD bit order side, key bits low
     to high (the high plane sign-biased so unsigned bit order is signed
@@ -92,12 +103,7 @@ def _radix_union_sort(inv, k, side, vals: dict, key_bits: int):
     val_planes = {n: col_planes(v) for n, v in vals.items()}
     planes = [inv, (k64 & M32).to(I32), khi_b, side,
               *[p for ps in val_planes.values() for p in ps]]
-    nb = min(key_bits, 64)
-    specs = [(3, 0)]
-    specs += [(1, b) for b in range(min(nb, 32))]
-    specs += [(2, b) for b in range(max(0, nb - 32))]
-    specs.append((0, 0))
-    out = lsd_radix_sort_bits(planes, specs)
+    out = lsd_radix_sort_bits(planes, union_sort_specs(key_bits))
     khi = (out[2].to(I64) & M32) ^ SIGN32
     k_s = planes_col((out[1], khi), I64).to(k.dtype)
     vals_s, pos = {}, 4
