@@ -13,8 +13,10 @@ Phases, one line each; any failure raises and exits non-zero:
                 to back (`ms`, host and card together) and on the card
                 alone (`device_ms`, calls queued behind a spin of the
                 stream so that the host runs ahead): PAD, PACK and the fused
-                walk/emit at config 1; the walk-only probe at config 3's
-                membership and at config 1's tables (one payload); the
+                walk/emit at config 1, the walk/emit also at each
+                work-item size (queries per CTA); the walk-only probe at
+                config 3's membership and at config 1's tables (one
+                payload), each also at every work-item size; the
                 fused walk/emit at config 3's heavy mini table; the
                 digit split (JSON name split1) at one pass of the
                 config-1 radix merge's sort and over the whole sort
@@ -29,8 +31,9 @@ Phases, one line each; any failure raises and exits non-zero:
   5. config3  — the 1M x 1M zipf-probe join, hash_join(impl="skew"), the
                 same way: PAD, PACK, the fused walk/emit and the probe
                 kernel launched, rows byte-equal to the oracle, the split
-                path taken (`join_hash_skew`); heavy keys and their share
-                of the probe rows;
+                path taken (`join_hash_skew`); its heavy rows against
+                the heavy buffer (out_capacity // 2, past which the join
+                falls back); heavy keys and their share of the probe rows;
   6. merge    — merge_join(sort_engine="radix") at config 1, the same
                 way: one split launch per digit pass of its 66 bit specs
                 (9 at 8 bits a pass) and no other kernel,
@@ -182,6 +185,15 @@ def fused_err(args, got) -> int:
                        + [(a[:n], b[:n]) for a, b in zip(outs, routs)])
 
 
+def probe_err(args, got) -> int:
+    from tpq_torch.kernels.lane_table import probe_walk_ref
+
+    (cnt, df, pays), (rcnt, rdf, rpays) = got, probe_walk_ref(*args)
+    return max_abs_err([(cnt, rcnt), (df, rdf)]
+                       + [(a, b) for row, rrow in zip(pays, rpays)
+                          for a, b in zip(row, rrow)])
+
+
 def hist_err(args, got) -> int:
     from tpq_torch.kernels.radix_partition import radix_histogram_ref
 
@@ -197,8 +209,8 @@ LARGEST = ("pad", "pack", "fused_walk_emit")  # kept at their largest call
 
 def call_size(name, args) -> int:
     """What picks a join's largest call: PAD's and PACK's output slots
-    times row width (move_ab.size), the walk/emit's padded queries."""
-    from tpq_torch.bench.move_ab import size
+    times row width (kernel_ab.size), the walk/emit's padded queries."""
+    from tpq_torch.bench.kernel_ab import size
 
     return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
 
@@ -397,18 +409,18 @@ def chunk_sweep(K, args, label):
     from tpq_torch.kernels import lane2
 
     plan = args[0].plan
-    want, times, saved = lane2.fused_walk_emit(*args), {}, lane2.work_item_queries
+    want, times, saved = lane2.fused_walk_emit(*args), {}, lane2.walk_emit_chunk
     n = min(int(want[1].clamp_max(plan.inline_k).sum()), args[-1])
     try:
         for c in (1024, 2048, 4096):
-            lane2.work_item_queries = lambda *_, c=c: min(c, plan.probe_cap)
+            lane2.walk_emit_chunk = lambda *_, c=c: min(c, plan.probe_cap)
             got = lane2.fused_walk_emit(*args)
             check(max_abs_err([(got[1], want[1]), (got[2], want[2])]
                               + [(a[:n], b[:n]) for a, b in zip(got[0], want[0])]) == 0,
                   f"fused_walk_emit ({label}) differs at {c} queries a work item")
             times[c] = K.device_ms(lambda: lane2.fused_walk_emit(*args), K.iters)
     finally:
-        lane2.work_item_queries = saved
+        lane2.walk_emit_chunk = saved
     phase("kernels", f"fused_walk_emit ({label}) on the card alone by queries per work "
                      "item: " + ", ".join(f"{c} {t:.4f} ms" for c, t in times.items())
           + f"; in use {saved(plan, args[1].device.index)}")
@@ -420,19 +432,38 @@ def probe_phase(K, args, label, record):
 
     tables, qk, lane, qocc = args
     plan = tables.plan
-    (cnt, df, pays), (rcnt, rdf, rpays) = probe_walk(*args), probe_walk_ref(*args)
-    err = max_abs_err([(cnt, rcnt), (df, rdf)]
-                      + [(a, b) for row, rrow in zip(pays, rpays)
-                         for a, b in zip(row, rrow)])
+    got = probe_walk(*args)
+    cnt, err = got[0], probe_err(args, got)
     u, npay = qk.shape[0], len(tables.pays)
     emitted = int(torch.where(qocc > 0, cnt.clamp_max(plan.inline_k), 0).sum())
     nbytes = (u * 16 + tables.key.numel() * 8 + tables.blen.numel() * 4
               + emitted * 8 * npay + u * 8 + plan.inline_k * npay * u * 8)
-    K.hold("probe_walk",
-           f"{label}: npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
-           f"{npay} payload cols, u={u}, {int((cnt > 0).sum())} queries matched",
-           lambda: probe_walk(*args), lambda: probe_walk_ref(*args), 3, err,
-           nbytes, walk_work(tables, lane, qocc), record=record)
+    return K.hold("probe_walk",
+                  f"{label}: npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
+                  f"{npay} payload cols, u={u}, {int((cnt > 0).sum())} queries matched",
+                  lambda: probe_walk(*args), lambda: probe_walk_ref(*args), 3, err,
+                  nbytes, walk_work(tables, lane, qocc), record=record)
+
+
+def probe_chunk_sweep(K, args, label):
+    """The walk-only probe on the card alone at each size of its work
+    items (padded queries per CTA), each output byte-equal to the plain
+    version's; returns {queries: device ms}."""
+    from tpq_torch.kernels import lane_table
+
+    plan, times, saved = args[0].plan, {}, lane_table.probe_walk_chunk
+    try:
+        for c in sorted({min(c, plan.probe_cap) for c in (1024, 2048, 4096, 8192)}):
+            lane_table.probe_walk_chunk = lambda *_, c=c: c
+            check(probe_err(args, lane_table.probe_walk(*args)) == 0,
+                  f"probe_walk ({label}) differs at {c} queries a work item")
+            times[c] = K.device_ms(lambda: lane_table.probe_walk(*args), K.iters)
+    finally:
+        lane_table.probe_walk_chunk = saved
+    phase("kernels", f"probe_walk ({label}) on the card alone by queries per work "
+                     "item: " + ", ".join(f"{c} {t:.4f} ms" for c, t in times.items())
+          + f"; in use {saved(plan, args[1].device.index)}")
+    return times
 
 
 def digit_of(planes, specs):
@@ -547,7 +578,8 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
         r1, plan_lane2(r1.capacity, s1.capacity, out_capacity=cap1))
     calls = record_kernel_calls(lambda: probe_lane_tables(tables, s1))
     (args,) = calls["probe_walk"]
-    probe_phase(K, args, "config-1 tables, config-1 S", record=False)
+    config1_tables = probe_phase(K, args, "config-1 tables, config-1 S", record=False)
+    config1_tables["device_ms_by_chunk"] = probe_chunk_sweep(K, args, "config-1 tables")
 
     r3, s3 = gen(cfg3.r, dev), gen(cfg3.s, dev)
     cap3 = out_capacity_for(cfg3)
@@ -556,6 +588,9 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
           f"config 3 reached kernels {sorted(calls)}")
     check(len(calls["probe_walk"]) == 2, "expected the R and S membership probes")
     probe_phase(K, calls["probe_walk"][0], "config-3 membership of R", record=True)
+    K.rec["probe_walk"]["device_ms_by_chunk"] = probe_chunk_sweep(
+        K, calls["probe_walk"][0], "config-3 membership of R")
+    K.rec["probe_walk"]["config1_tables"] = config1_tables
     heavy = [a for a in calls["fused_walk_emit"] if a[0].plan.npart == 1]
     check(len(heavy) == 1, "expected one heavy-path fused walk/emit")
     K.rec["fused_walk_emit"]["config3_heavy"] = fused_phase(
@@ -685,11 +720,30 @@ def config1_phase(dev, cfg, hbm_bw):
 
 def config3_phase(dev, cfg, hbm_bw):
     from tpq_torch.bench.runner import gen
+    from tpq_torch.ops import skew_join
     from tpq_torch.ops.skew_join import nominate_heavy_keys
 
-    launches, s_np = run_path(
-        "config3", dev, cfg, {"pad", "pack", "fused_walk_emit", "probe_walk"},
-        "join_hash_skew", hbm_bw)
+    # the heavy output of the counted join's own split (the first call;
+    # the bench runner's joins follow)
+    split, heavy_outs = skew_join._split, []
+
+    def recording_split(*args, **kwargs):
+        light_out, heavy_out, ok = split(*args, **kwargs)
+        if not heavy_outs:
+            heavy_outs.append(heavy_out)
+        return light_out, heavy_out, ok
+
+    skew_join._split = recording_split
+    try:
+        launches, s_np = run_path(
+            "config3", dev, cfg, {"pad", "pack", "fused_walk_emit", "probe_walk"},
+            "join_hash_skew", hbm_bw)
+    finally:
+        skew_join._split = split
+    heavy_out = heavy_outs[0]
+    phase("config3", f"heavy rows {int(heavy_out.num_rows)} of the heavy buffer's "
+                     f"{heavy_out.capacity} (out_capacity // 2; more would send the "
+                     f"join to the union engine)")
     s = gen(cfg.s, dev)
     heavy, n_heavy, _ = nominate_heavy_keys(s.col("key"), s.num_rows)
     heavy = heavy[:int(n_heavy)].cpu().numpy()

@@ -11,20 +11,24 @@ import numpy as np
 import pytest
 import torch
 import torch_move_cases as cases
+import torch_skew_cases as skew_cases
 
 from tpq_torch import Table, datagen
 from tpq_torch.columnar import canonicalize, tables_equal
 from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh, run_dryrun
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, plan_lane2)
+from tpq_torch.kernels import lane_table
 from tpq_torch.kernels.lane_table import (LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
                                           probe_walk_ref, walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
-from tpq_torch.kernels.radix_partition import radix_histogram, radix_histogram_ref
+from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, radix_histogram,
+                                               radix_histogram_ref)
 from tpq_torch.kernels.radix_sort import (_split1, digit_passes, lsd_radix_sort_bits,
                                           split1_ref, split_digit, split_digit_ref)
 from tpq_torch.ops import hash_join, merge_join
+from tpq_torch.ops.skew_join import skew_path_taken
 from tpq_torch.ops.union_join import union_sort_specs
 
 pytestmark = pytest.mark.cuda
@@ -278,6 +282,81 @@ def test_probe_walk_matches_plain(dev, k, depth, npart):
             assert bool(tables.ok) and int(rcnt.max()) > k
 
 
+def _membership_case(dev, k, npay):
+    """A one-partition list table of 300 keys (D 48, the skew join's list
+    table at K 1 without payloads), probed by 2^20 queries of which about
+    two in five hold a listed key, some keys listed up to 3 times."""
+    rng = np.random.default_rng(k + npay)
+    keys = rng.integers(0, 1 << 40, 300)
+    keys[:30] = keys[30:60]  # listed twice
+    keys[60:70] = keys[:10]  # and three times
+    cols = {"key": keys.astype(np.int64)}
+    cols.update({f"p{i}": rng.integers(0, 1 << 62, 300) for i in range(npay)})
+    r = Table.from_numpy(cols, device=dev)
+    q = rng.integers(0, 1 << 40, 1 << 20)
+    hit = rng.random(1 << 20) < 0.4
+    q[hit] = rng.choice(keys, int(hit.sum()))
+    s = Table.from_numpy({"key": q.astype(np.int64)}, device=dev)
+    plan = LanePlan(pbits=0, depth=48, probe_cap=1 << 20, inline_k=k,
+                    tail_rows_cap=2048, tail_out_cap=4096)
+    tables = build_lane_tables(r, plan)
+    assert bool(tables.ok)
+    qk, _, lane, qocc, ovf = _probe_layout(plan, s, "key")
+    assert not bool(ovf)
+    return tables, qk, lane, qocc
+
+
+def _probe_eq(got, want):
+    (cnt, d_first, pays), (rcnt, rdf, rpays) = got, want
+    _eq(cnt, rcnt)
+    _eq(d_first, rdf)
+    assert len(pays) == len(rpays)
+    for row, rrow in zip(pays, rpays):
+        assert len(row) == len(rrow)
+        for a, b in zip(row, rrow):
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("chunk", [None, 1024, 2048, 4096, 3000])
+@pytest.mark.parametrize("k,npay", [(1, 0), (4, 2)])
+def test_probe_walk_one_partition_million_queries(dev, monkeypatch, k, npay, chunk):
+    """The config-3 membership shape: one partition, probe_cap 2^20, at
+    the work-item size the wrapper picks (None) and at others, one of
+    which does not divide probe_cap (3,000)."""
+    tables, qk, lane, qocc = _membership_case(dev, k, npay)
+    if chunk is not None:
+        monkeypatch.setattr(lane_table, "probe_walk_chunk", lambda *_: chunk)
+    got = probe_walk(tables, qk, lane, qocc)
+    want = probe_walk_ref(tables, qk, lane, qocc)
+    _probe_eq(got, want)
+    assert int(want[0].max()) == 3 and int((want[0] > 0).sum()) > 400_000
+    _probe_eq(probe_walk(tables, qk, lane, qocc), got)
+
+
+def test_probe_walk_every_query_dead(dev):
+    """No live query: cnt 0, d_first -1 and every payload rank 0."""
+    tables, qk, lane, qocc = _membership_case(dev, 4, 2)
+    dead = torch.zeros_like(qocc)
+    cnt, d_first, pays = probe_walk(tables, qk, lane, dead)
+    _probe_eq((cnt, d_first, pays), probe_walk_ref(tables, qk, lane, dead))
+    assert int(cnt.abs().max()) == 0 and bool((d_first == -1).all())
+    assert all(int(p.abs().max()) == 0 for row in pays for p in row)
+
+
+@pytest.mark.parametrize("r7,s7,taken", [(10, 1000, False), (8, 1024, True)],
+                         ids=["past", "full"])
+def test_skew_heavy_overflow_on_card(dev, r7, s7, taken):
+    """Heavy matches past the heavy buffer send the join to the union
+    engine; a full buffer keeps the split. Rows equal numpy's join."""
+    r, s = skew_cases.heavy_case(r7, s7)
+    R, S = Table.from_numpy(r, device=dev), Table.from_numpy(s, device=dev)
+    cap = skew_cases.OUT_CAPACITY
+    assert bool(skew_path_taken(R, S, cap)) == taken
+    out = hash_join(R, S, cap, impl="skew")
+    assert int(out.num_rows) == r7 * s7 + 3000
+    assert tables_equal(canonicalize(out), skew_cases.numpy_join(r, s))
+
+
 @pytest.mark.parametrize("nplanes", [1, 16, 17])
 @pytest.mark.parametrize("n,bits", [(100_003, "mixed"), (4096 * 3 + 5, "zeros"),
                                     (5000, "ones"), (1, "mixed"),
@@ -362,21 +441,35 @@ def test_skew_join_on_card_matches_cpu(dev):
     assert tables_equal(canonicalize(on_card), canonicalize(on_cpu))
 
 
-@pytest.mark.parametrize("nbuckets", [9, 64, 4096])
-@pytest.mark.parametrize("n", [256 * 4096, 100_003, 1])
-def test_radix_histogram_matches_plain(dev, n, nbuckets):
-    """n a multiple of the 256-thread block and not; ids below 0, at the
-    sentinel nbuckets and past it are ignored; at nbuckets 9 one bucket
-    takes a third of the ids (the planner's contention)."""
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nbuckets", [1, 9, 4096, 12_288, 12_289, MAX_BUCKETS])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 100_003, 1 << 24])
+def test_radix_histogram_matches_plain(dev, n, nbuckets, offset):
+    """n below, at and past one 16-byte load and at the planner's 2^24; ids
+    starting 4 bytes past a 16-byte boundary (offset 1: ids[1:]); bucket
+    counts at and past the 48 KB of shared bins a block gets without
+    raising its limit, and MAX_BUCKETS; ids below 0, at the sentinel
+    nbuckets and past it are ignored, and one bucket takes a third of the
+    ids (the planner's contention). Two runs write the same bytes."""
     rng = np.random.default_rng(n + nbuckets)
-    ids = rng.integers(-5, nbuckets + 5, n).astype(np.int32)
+    ids = rng.integers(-5, nbuckets + 5, n + offset).astype(np.int32)
     ids[::3] = nbuckets // 2
-    ids = torch.from_numpy(ids).to(dev)
+    ids = torch.from_numpy(ids).to(dev)[offset:]
+    assert ids.data_ptr() % 16 == 4 * offset
     before = radix_histogram.launches
     got = radix_histogram(ids, nbuckets)
     assert radix_histogram.launches == before + 1
     _eq(got, radix_histogram_ref(ids, nbuckets))
-    _eq(radix_histogram(ids, nbuckets), got)  # integer atomics: same bytes
+    _eq(radix_histogram(ids, nbuckets), got)
+
+
+@pytest.mark.parametrize("nbuckets", [9, 12_289])
+def test_radix_histogram_all_out_of_range(dev, nbuckets):
+    ids = torch.tensor([-1, nbuckets, nbuckets + 7, -(1 << 31)] * 1001,
+                       dtype=torch.int32, device=dev)
+    _eq(radix_histogram(ids, nbuckets), torch.zeros(nbuckets, dtype=torch.int32, device=dev))
+    _eq(radix_histogram(ids[:1], nbuckets), torch.zeros(nbuckets, dtype=torch.int32,
+                                                        device=dev))
 
 
 def test_dist_join_on_card_matches_cpu(dev):

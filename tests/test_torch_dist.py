@@ -36,8 +36,7 @@ from tpq_torch.dist import (DistTable, SkewConfig, dist_hash_join,
                             plan_dist_capacities)
 from tpq_torch.dist.exchange import exchange
 from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, partition_padded,
-                                               radix_histogram,
-                                               radix_histogram_ref)
+                                               radix_histogram, radix_histogram_ref)
 from tpq_torch.kernels.radix_sort import msd_partition
 
 from conftest import assert_tables_equal
@@ -118,6 +117,20 @@ def test_radix_histogram_rejects_what_the_kernel_cannot_take():
         radix_histogram(ids.to(torch.int64), 8)
     # any N: no tile multiple needed
     assert radix_histogram(torch.arange(7, dtype=torch.int32), 5).tolist() == [1] * 5
+
+
+@pytest.mark.parametrize("n,nbuckets,offset", [(1, 1, 0), (100_003, 9, 1),
+                                               (4099, MAX_BUCKETS, 3)])
+def test_radix_histogram_takes_any_slice(n, nbuckets, offset):
+    """The contract the kernel is held to on the card, here on the CPU:
+    a slice at any offset and of any length, ids below 0 and at or past
+    nbuckets ignored, equal to numpy's bincount of the ids in range."""
+    rng = np.random.default_rng(n + offset)
+    all_ids = rng.integers(-3, nbuckets + 3, n + offset).astype(np.int32)
+    got = radix_histogram(torch.from_numpy(all_ids)[offset:], nbuckets)
+    ids = all_ids[offset:]
+    inr = ids[(ids >= 0) & (ids < nbuckets)]
+    np.testing.assert_array_equal(got.numpy(), np.bincount(inr, minlength=nbuckets))
 
 
 @pytest.mark.parametrize("extra", [False, True])

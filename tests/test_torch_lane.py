@@ -23,7 +23,7 @@ from tpq_torch.config import PRESETS
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_probe_emit2,
                                      lane2_path_taken, plan_lane2)
 from tpq_torch.kernels.lane_table import (LanePlan, lane_tables_from_numpy,
-                                          plan_pressure)
+                                          plan_pressure, work_item_queries)
 from tpq_torch.ops import hash_join
 from tpq_torch.ops.union_join import col_planes
 
@@ -173,3 +173,19 @@ def test_hash_join_lane_matches_tpq(tpq_lane):
     assert bool(lane2_path_taken(r, s, CAP))
     out = hash_join(r, s, CAP, impl="lane")
     assert_tables_equal(canonicalize(out), tpq_lane["join"], "lane join")
+
+
+@pytest.mark.parametrize("pbits,probe_cap,want", [(0, 1 << 20, 2048), (9, 3072, 3072),
+                                                  (0, 1000, 1000)])
+def test_work_item_queries_picks_by_waves(pbits, probe_cap, want):
+    """The walk-only probe's work-item sizes at the H100's 528 CTAs at
+    once (132 SMs, 4 of its D-48 tiles each): config 3's membership (one
+    partition of 2^20 queries) in one wave of 2,048-query CTAs, config
+    1's tables (512 partitions of 3,072) one whole partition a CTA, and a
+    partition shorter than the smallest size taken whole."""
+    plan = LanePlan(pbits=pbits, depth=48, probe_cap=probe_cap, inline_k=1,
+                    tail_rows_cap=2048, tail_out_cap=4096)
+    asked = []
+    got = work_item_queries(plan, lambda chunk: asked.append(chunk) or 528)
+    assert got == want
+    assert sorted(asked) == sorted({min(probe_cap, c) for c in (1024, 2048, 4096)})

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_skew_cases as skew_cases
 
 from tpq import Table as JTable
 from tpq import datagen as jdatagen
@@ -267,3 +268,28 @@ def test_skew_join_two_runs_identical():
     assert int(a.num_rows) == int(b.num_rows) == 8832
     for k in a.columns:
         assert torch.equal(a.columns[k], b.columns[k]), k
+
+
+# ---------------------------------------------------------------------------
+# heavy matches past the heavy buffer (out_capacity // 2): the port alone
+# against numpy's join and the oracle (tpq splices the cut buffer and
+# gives the same wrong rows, so it is no reference here)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r7,s7,taken", [
+    (10, 1000, False),  # 10,000 heavy rows: past the heavy buffer, falls back
+    (8, 1024, True),    # 8,192: the heavy buffer exactly full, the split holds
+    (8, 1025, False),   # 8,200: one heavy row per R row too many
+], ids=["past", "full", "one_past"])
+def test_skew_heavy_overflow_falls_back_exact(oracle, tmp_path, r7, s7, taken):
+    r, s = skew_cases.heavy_case(r7, s7)
+    R, S = _cpu(r), _cpu(s)
+    cap = skew_cases.OUT_CAPACITY
+    assert bool(skew_path_taken(R, S, cap)) == taken
+    out = skew_hash_join(R, S, cap)
+    want = skew_cases.numpy_join(r, s)
+    assert int(out.num_rows) == len(want["key"]) == r7 * s7 + 3000
+    got = canonicalize(out)
+    assert_tables_equal(got, want, "heavy overflow vs numpy")
+    assert_tables_equal(got, _oracle_rows(oracle, tmp_path, r, s, "heavy"),
+                        "heavy overflow vs oracle")

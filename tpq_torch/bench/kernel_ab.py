@@ -1,23 +1,25 @@
-"""PAD and PACK of two trees of the repository, timed in turns on the
+"""Kernel wrappers of two trees of the repository, timed in turns on the
 same arguments on one card.
 
-Runs one join of each preset with this tree's code. Every PAD and PACK
-call the join makes is also handed to the other tree's wrapper
-(`--before`), whose outputs must be byte-equal to this tree's, and both
-wrappers are timed on its arguments in turns, before, after, after,
-before:
+Runs one join of each preset with this tree's code. Every call the join
+makes to PAD, PACK, the walk-only probe or the bucket histogram is also
+handed to the other tree's wrapper (`--before`), whose outputs must be
+byte-equal to this tree's, and both wrappers are timed on its arguments
+in turns, before, after, after, before:
   - `device_ms`: calls queued behind a spin of the stream, the card alone
     (runner.device_time), every device operation of the call included;
   - `host_ms`: the same calls on the host's clock, wrapper entry to
     return, while the card is busy;
   - `ms`: back to back, host and card together (runner.cuda_time).
 Prints one JSON line per named call (config 1's build, probe and
-tail-window PAD and its tail PACK; config 3's nomination PACK; the
-largest PAD and PACK of the planned config-5 join) and one per preset
-with the sums over every PAD and PACK call of its join.
+tail-window PAD and its tail PACK, and the walk-only probe at its tables,
+on no join's path; config 3's nomination PACK and its two membership
+probes; the planner's first histogram and the largest PAD and
+PACK of the planned config-5 join) and one per preset and kernel with
+the sums over every call of its join.
 
 CLI (needs a card):
-  python -m tpq_torch.bench.move_ab --before=DIR \\
+  python -m tpq_torch.bench.kernel_ab --before=DIR \\
       [--config=single_chip_1m --config=zipf_skew ...] [--out=FILE]
 (the parent commit unpacked with `git archive` into a git-ignored
 directory makes a `before` tree; its kernels are built there)
@@ -26,6 +28,7 @@ directory makes a `before` tree; its kernels are built there)
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import json
 import os
@@ -37,12 +40,20 @@ from tpq_torch.bench.ab import ORDER
 
 N_CALLS = 10  # calls per timing
 CONFIGS = ("single_chip_1m", "zipf_skew", "dist_125m_8shard")
+# kernel -> (module under tpq_torch.kernels, wrapper)
+KERNELS = {"pad": ("move", "pad"), "pack": ("move", "pack"),
+           "probe_walk": ("lane_table", "probe_walk"),
+           "radix_histogram": ("radix_partition", "radix_histogram")}
 # the calls named in the output: (preset, kernel, index in the join) -> label
 NAMED = {("single_chip_1m", "pad", 0): "config-1 build",
          ("single_chip_1m", "pad", 1): "config-1 probe layout",
          ("single_chip_1m", "pad", 2): "config-1 tail window",
          ("single_chip_1m", "pack", 0): "config-1 tail",
-         ("zipf_skew", "pack", 0): "config-3 nomination"}
+         ("single_chip_1m", "probe_walk", 0): "config-1 tables, config-1 S",
+         ("zipf_skew", "pack", 0): "config-3 nomination",
+         ("zipf_skew", "probe_walk", 0): "config-3 membership of R",
+         ("zipf_skew", "probe_walk", 1): "config-3 membership of S",
+         ("dist_125m_8shard", "radix_histogram", 0): "planner, shard 0 of R"}
 
 
 def _own_modules() -> dict:
@@ -50,46 +61,60 @@ def _own_modules() -> dict:
             if k == "tpq_torch" or k.startswith("tpq_torch.")}
 
 
-def load_move(root: str):
-    """tpq_torch.kernels.move of the tree at `root`, imported beside this
-    tree's: this tree's tpq_torch modules are set aside while it loads and
-    put back after. The module keeps its own _build, and so its own kernel
-    library, built here from that tree's sources."""
+def load_tree(root: str) -> dict:
+    """{kernel: wrapper} of the tree at `root`, imported beside this
+    tree's: this tree's tpq_torch modules are set aside while its modules
+    load and put back after. They keep their own _build, and so their
+    own kernel library, built here from that tree's sources."""
     saved = _own_modules()
     for k in saved:
         del sys.modules[k]
     sys.path.insert(0, root)
     try:
-        move = importlib.import_module("tpq_torch.kernels.move")
-        move._build.build(force=True)
-        move._build.lib()
+        mods = {m: importlib.import_module(f"tpq_torch.kernels.{m}")
+                for m, _ in KERNELS.values()}
+        mods["move"]._build.build(force=True)
+        mods["move"]._build.lib()
     finally:
         sys.path.remove(root)
         for k in _own_modules():
             del sys.modules[k]
         sys.modules.update(saved)
-    if not os.path.abspath(move.__file__).startswith(root + os.sep):
-        raise RuntimeError(f"loaded {move.__file__}, not the tree at {root}")
-    return move
+    for m in mods.values():
+        if not os.path.abspath(m.__file__).startswith(root + os.sep):
+            raise RuntimeError(f"loaded {m.__file__}, not the tree at {root}")
+    return {k: getattr(mods[m], fn) for k, (m, fn) in KERNELS.items()}
 
 
 def size(name: str, args) -> int:
-    """Output slots times row width: what picks a join's largest call."""
-    slots = args[3] if name == "pad" else args[1].shape[0]
-    return slots * sum(c.element_size() for c in args[0])
+    """What picks a join's largest call: PAD's and PACK's output slots
+    times row width, the probe's padded queries, the histogram's ids."""
+    if name == "pad":
+        return args[3] * sum(c.element_size() for c in args[0])
+    if name == "pack":
+        return args[1].shape[0] * sum(c.element_size() for c in args[0])
+    return args[1].shape[0] if name == "probe_walk" else args[0].shape[0]
 
 
 def describe(name: str, args) -> str:
     if name == "pad":
         cols, dest, _, out_len = args
         return f"{len(cols)} cols x {dest.shape[0]} rows -> {out_len}"
-    cols, occ = args
-    return f"{len(cols)} cols x {occ.shape[0]} rows"
+    if name == "pack":
+        cols, occ = args
+        return f"{len(cols)} cols x {occ.shape[0]} rows"
+    if name == "probe_walk":
+        plan = args[0].plan
+        return (f"npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
+                f"{len(args[0].pays)} payload cols, u={args[1].shape[0]}")
+    return f"{args[0].shape[0]} ids into {args[1]} buckets"
 
 
 def same(a, b) -> bool:
-    (oa, xa), (ob, xb) = a, b
-    return all(torch.equal(p, q) for p, q in zip(oa, ob)) and torch.equal(xa, xb)
+    """Byte equality of two outputs: tensors, or lists and tuples of them."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
 
 
 def time_pair(fns: dict, device) -> dict:
@@ -106,15 +131,18 @@ def time_pair(fns: dict, device) -> dict:
 
 
 def hooked_join(join, trees: dict, device) -> list[dict]:
-    """Runs join() with every PAD and PACK call also made, checked and
+    """Runs join() with every call of the kernels also made, checked and
     timed on both trees' wrappers; returns one record per call."""
-    from tpq_torch.kernels import lane_table
+    from tpq_torch.kernels import lane_table, radix_partition
     from tpq_torch.ops import filter as filter_op
     from tpq_torch.ops import skew_join
 
     records, counts = [], {}
 
     def hook(name):
+        # wraps copies `launches`: while patched, a wrapper's body counts
+        # through its module-global name, which may be this hook
+        @functools.wraps(trees["after"][name])
         def call(*args):
             got = trees["after"][name](*args)
             if not same(got, trees["before"][name](*args)):
@@ -128,7 +156,8 @@ def hooked_join(join, trees: dict, device) -> list[dict]:
         return call
 
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
-               (filter_op, "pack")]
+               (filter_op, "pack"), (lane_table, "probe_walk"),
+               (radix_partition, "radix_histogram")]
     saved = [getattr(m, n) for m, n in patched]
     for m, n in patched:
         setattr(m, n, hook(n))
@@ -154,9 +183,25 @@ def preset_join(config: str, device):
     return join_fn(cfg, r, s, out_capacity_for(cfg))
 
 
+def config1_tables_probe(device):
+    """The walk-only probe at config 1's tables (D 48, K 4, one payload)
+    probed by config 1's S, as chip_smoke.py times it: on no join's path,
+    the probe's case with payloads."""
+    from tpq_torch.bench.runner import gen, out_capacity_for
+    from tpq_torch.config import PRESETS
+    from tpq_torch.kernels.lane2 import build_lane2_tables, plan_lane2
+    from tpq_torch.kernels.lane_table import probe_lane_tables
+
+    cfg = PRESETS["single_chip_1m"]
+    r, s = gen(cfg.r, device), gen(cfg.s, device)
+    tables = build_lane2_tables(r, plan_lane2(r.capacity, s.capacity,
+                                              out_capacity=out_capacity_for(cfg)))
+    return lambda: probe_lane_tables(tables, s)
+
+
 def summarize(config: str, records: list[dict]) -> list[dict]:
     rows = []
-    for name in ("pad", "pack"):
+    for name in KERNELS:
         mine = [r for r in records if r["kernel"] == name]
         if not mine:
             continue
@@ -164,7 +209,8 @@ def summarize(config: str, records: list[dict]) -> list[dict]:
         largest = max(mine, key=lambda r: r["size"])
         for r in mine:
             label = named.get(r["index"])
-            if label is None and config == "dist_125m_8shard" and r is largest:
+            if (label is None and config == "dist_125m_8shard" and r is largest
+                    and name in ("pad", "pack")):
                 label = "largest config-5 call"
             if label is not None:
                 rows.append({"config": config, "label": label, **r})
@@ -179,7 +225,6 @@ def summarize(config: str, records: list[dict]) -> list[dict]:
 def main(argv=None):
     from tpq_torch.bench.runner import card_info
     from tpq_torch.kernels import _build
-    from tpq_torch.kernels import move as after
 
     p = argparse.ArgumentParser()
     p.add_argument("--before", required=True)
@@ -190,14 +235,17 @@ def main(argv=None):
     print(card_info(), flush=True)
     _build.build(force=True)
     _build.lib()
-    before = load_move(os.path.abspath(args.before))
-    trees = {t: {"pad": m.pad, "pack": m.pack} for t, m in (("before", before),
-                                                            ("after", after))}
+    after = {k: getattr(importlib.import_module(f"tpq_torch.kernels.{m}"), fn)
+             for k, (m, fn) in KERNELS.items()}
+    trees = {"before": load_tree(os.path.abspath(args.before)), "after": after}
     rows, every = [], []
     for config in args.config or CONFIGS:
         join = preset_join(config, device)
         join()  # the allocator and the clocks settle
         records = hooked_join(join, trees, device)
+        if config == "single_chip_1m":  # its probe alone: its PAD is no join's
+            records += [r for r in hooked_join(config1_tables_probe(device), trees, device)
+                        if r["kernel"] == "probe_walk"]
         every += [{"config": config, **r} for r in records]
         for row in summarize(config, records):
             print(json.dumps(row), flush=True)

@@ -170,7 +170,7 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
     if cfg.pipeline:
         raise NotImplementedError(
             "the filter->join->aggregate pipeline is not yet ported "
-            "(ROADMAP.md Queue 1 item 6)")
+            "(ROADMAP.md Queue 1 item 1)")
     dev = torch.device(device)
     r, s = gen(cfg.r, dev), gen(cfg.s, dev)
     out_cap = out_capacity_for(cfg)

@@ -59,91 +59,36 @@
 //
 // probe_walk_kernel is the walk-only probe, the port of
 // tpq/kernels/lane_table.py _probe_kernel (wrapper probe_lane_tables),
-// which the skew join's membership probe runs. It stages the key tile
-// with a plain copy loop (stage_tile) per 1,024-query chunk and writes,
-// per padded query, cnt, d_first and the build payloads of its first K
-// matches (0 past cnt and for dead queries), each read from device
-// memory on a match. Bound by bytes: it reads each query (key, lane,
-// occ: 16 B) once and writes 8 B plus 8 B per (rank, payload column);
-// the key tile comes from L2 for all but the first CTA of a partition.
-// With no payload columns (the key-only list table of the skew join)
-// only cnt and d_first go out.
+// which the skew join's membership probes run (a one-partition list
+// table of the heavy keys, D 48, K 1, no payload columns, probed by
+// 1,048,576 rows at config 3). It writes, per padded query, cnt, d_first
+// and the build payloads of its first K matches (0 past cnt and for
+// dead queries). Bound by bytes: each query read once (key, lane, occ:
+// 16 B) and 8 B plus 8 B per (rank, payload column) written. So:
+//   * a CTA takes `chunk` padded queries of one partition, the size
+//     picked by the waves of CTAs it needs on the card, as for the
+//     walk/emit (lane_table.probe_walk_chunk): a one-partition table of
+//     a million queries is walked by one wave of 2,048-query CTAs, each
+//     of which copies the tile once;
+//   * warp 0 reads the partition's 128 bucket lengths and one thread
+//     copies the key tile's depths up to the longest bucket (the depths
+//     any walk reads: 6 of 48 for config 3's 292 heavy keys) into shared
+//     memory by TMA on an mbarrier, while every thread loads its first
+//     queries;
+//   * a thread walks its queries, striped over the CTA, and keeps the
+//     depths of its first K matches in a register; cnt and d_first, then
+//     each (rank, column) payload, go out in one coalesced store per
+//     warp, zero at ranks at or past cnt.
+// Nothing is ordered across CTAs, so no ticket or look-back.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 1024;  // queries per CTA
 constexpr int kLanes = 128;
-
-__device__ __forceinline__ void stage_tile(int64_t* s_key, int32_t* s_blen,
-                                           const int64_t* __restrict__ t_key,
-                                           const int32_t* __restrict__ blen,
-                                           int p, int D) {
-  const int64_t* tk = t_key + int64_t(p) * D * kLanes;
-  for (int i = threadIdx.x; i < D * kLanes; i += blockDim.x) s_key[i] = tk[i];
-  if (threadIdx.x < kLanes) s_blen[threadIdx.x] = blen[p * kLanes + threadIdx.x];
-  __syncthreads();
-}
-
-// The grid is 1-D, one CTA per (partition, chunk) in partition-major
-// order: gridDim.y stops at 65,535, and a 2^27-row build plans 65,536
-// partitions. Returns the partition and the CTA's first query in it.
-__device__ __forceinline__ int2 cta_chunk(int probe_cap) {
-  const int chunks = (probe_cap + kChunk - 1) / kChunk;
-  return make_int2(int(blockIdx.x / chunks), int(blockIdx.x % chunks) * kChunk);
-}
-
 constexpr int kMaxK = 8;  // MAX_K in tpq_torch/kernels/lane_table.py
-
-struct ProbeCols {
-  const int64_t* tpay[TPQ_MAX_COLS];        // build payloads [npart, D, 128]
-  int64_t* out[kMaxK * TPQ_MAX_COLS];       // rank j, column i at [j * n + i]
-  int n;
-};
-
-__global__ void probe_walk_kernel(const int64_t* __restrict__ t_key,
-                                  const int32_t* __restrict__ blen,
-                                  const int64_t* __restrict__ qk,
-                                  const int32_t* __restrict__ lane,
-                                  const int32_t* __restrict__ qocc, int D,
-                                  int K, int probe_cap,
-                                  int32_t* __restrict__ cnt_out,
-                                  int32_t* __restrict__ dfirst_out,
-                                  ProbeCols cols) {
-  extern __shared__ int64_t s_key[];
-  __shared__ int32_t s_blen[kLanes];
-  const int2 pc = cta_chunk(probe_cap);
-  const int p = pc.x;
-  stage_tile(s_key, s_blen, t_key, blen, p, D);
-
-  for (int it = 0; it < kChunk / kThreads; it++) {
-    const int qi = pc.y + it * kThreads + threadIdx.x;
-    if (qi >= probe_cap) break;
-    const int64_t q = int64_t(p) * probe_cap + qi;
-    int c = 0, df = -1;
-    if (qocc[q] > 0) {
-      const int l = lane[q];
-      const int64_t key = qk[q];
-      const int bl = s_blen[l];
-      for (int d = 0; d < bl; d++) {
-        if (s_key[d * kLanes + l] != key) continue;
-        if (c == 0) df = d;
-        if (c < K) {
-          const int64_t slot = (int64_t(p) * D + d) * kLanes + l;
-          for (int i = 0; i < cols.n; i++)
-            cols.out[c * cols.n + i][q] = cols.tpay[i][slot];
-        }
-        c++;
-      }
-    }
-    cnt_out[q] = c;
-    dfirst_out[q] = df;
-    for (int j = min(c, K); j < K; j++)
-      for (int i = 0; i < cols.n; i++) cols.out[j * cols.n + i][q] = 0;
-  }
-}
+constexpr int kBatch = 4;  // queries a thread loads before walking them
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
 
 // ---------------------------------------------------------------------------
 // the fused walk/emit
@@ -151,7 +96,6 @@ __global__ void probe_walk_kernel(const int64_t* __restrict__ t_key,
 
 constexpr int kEmitThreads = 256;
 constexpr int kMaxChunk = 4096;  // queries per work item: MAX_CHUNK in kernels/lane2.py
-constexpr int kBatch = 4;        // queries a thread loads before walking them
 
 struct EmitCols {
   const int64_t* tpay[TPQ_MAX_COLS];  // build payloads [npart, D, 128]
@@ -216,6 +160,102 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the walk-only probe
+// ---------------------------------------------------------------------------
+
+constexpr int kWalkThreads = 256;
+
+struct ProbeCols {
+  const int64_t* tpay[TPQ_MAX_COLS];   // build payloads [npart, D, 128]
+  int64_t* out[kMaxK * TPQ_MAX_COLS];  // rank j, column i at [j * n + i]
+  int n;
+};
+
+// The grid is 1-D, one CTA per `chunk` padded queries of a partition,
+// partition-major (gridDim.y stops at 65,535 partitions).
+__global__ void __launch_bounds__(kWalkThreads)
+    probe_walk_kernel(const int64_t* __restrict__ t_key, const int32_t* __restrict__ blen,
+                      const int64_t* __restrict__ qk, const int32_t* __restrict__ lane,
+                      const int32_t* __restrict__ qocc, int D, int K, int probe_cap,
+                      int chunk, int32_t* __restrict__ cnt_out,
+                      int32_t* __restrict__ dfirst_out, ProbeCols cols) {
+  extern __shared__ __align__(16) unsigned char smem[];  // key tile, depths < s_depth
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ __align__(16) int32_t s_blen[kLanes];
+  __shared__ int s_depth;
+  const int64_t* s_key = reinterpret_cast<const int64_t*>(smem);
+  const int chunks = (probe_cap + chunk - 1) / chunk;
+  const int64_t p = blockIdx.x / chunks;
+  const int c0 = int(blockIdx.x % chunks) * chunk;
+  const int qn = min(chunk, probe_cap - c0);
+  const int64_t q0 = p * probe_cap + c0;
+
+  if (threadIdx.x < 32) {  // warp 0: bucket lengths, the longest, the tile
+    const int4 b = reinterpret_cast<const int4*>(blen + p * kLanes)[threadIdx.x];
+    reinterpret_cast<int4*>(s_blen)[threadIdx.x] = b;
+    int m = max(max(b.x, b.y), max(b.z, b.w));
+    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    m = min(m, D);
+    if (threadIdx.x == 0) {
+      s_depth = m;
+      if (m > 0) {
+        mbar_init(&bar);
+        mbar_expect_tx(&bar, uint32_t(m) * kLanes * 8);
+        bulk_load(smem, t_key + p * D * kLanes, uint32_t(m) * kLanes * 8, &bar);
+      }
+    }
+  }
+
+  // query q = k * kWalkThreads + threadIdx.x, kBatch values of k loaded
+  // at a time (the first batch while the tile is in flight)
+  const int nk = (qn + kWalkThreads - 1) / kWalkThreads;
+  int32_t b_occ[kBatch], b_lane[kBatch];
+  int64_t b_key[kBatch];
+  auto load_batch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kBatch; i++) {
+      const int q = (k0 + i) * kWalkThreads + threadIdx.x;
+      b_occ[i] = q < qn ? qocc[q0 + q] : 0;
+      b_lane[i] = q < qn ? lane[q0 + q] : 0;
+      b_key[i] = q < qn ? qk[q0 + q] : 0;
+    }
+  };
+  load_batch(0);
+  __syncthreads();
+  if (s_depth > 0) mbar_wait(&bar, 0);
+  for (int k0 = 0; k0 < nk; k0 += kBatch) {
+    if (k0 > 0) load_batch(k0);
+#pragma unroll
+    for (int i = 0; i < kBatch; i++) {
+      const int q = (k0 + i) * kWalkThreads + threadIdx.x;
+      if (q >= qn) break;
+      int c = 0, df = -1;
+      uint64_t deps = 0;  // depth of match j in byte j, j < K
+      const int l = b_lane[i];
+      if (b_occ[i] > 0) {
+        const int64_t key = b_key[i];
+        const int bl = s_blen[l];
+        for (int d = 0; d < bl; d++) {
+          if (s_key[d * kLanes + l] == key) {
+            if (c == 0) df = d;
+            if (c < K) deps |= uint64_t(d) << (8 * c);
+            c++;
+          }
+        }
+      }
+      const int64_t g = q0 + q;
+      cnt_out[g] = c;
+      dfirst_out[g] = df;
+      for (int j = 0; j < K; j++) {
+        const int64_t slot = (p * D + int((deps >> (8 * j)) & 0xff)) * kLanes + l;
+        for (int i2 = 0; i2 < cols.n; i2++)
+          cols.out[j * cols.n + i2][g] = j < c ? cols.tpay[i2][slot] : 0;
+      }
+    }
   }
 }
 
@@ -423,25 +463,51 @@ int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
   return int(cudaGetLastError());
 }
 
-// outs holds K * npay column pointers, rank-major.
-int tpq_probe_walk(const int64_t* t_key, const int64_t* const* t_pays,
-                   int npay, const int32_t* blen, int npart, int D, int K,
-                   int probe_cap, const int64_t* qk, const int32_t* lane,
-                   const int32_t* qocc, int32_t* cnt, int32_t* dfirst,
-                   int64_t* const* outs, cudaStream_t stream) {
-  if (K < 1 || K > kMaxK || npay < 0 || npay > TPQ_MAX_COLS)
+// Dynamic shared memory of the walk-only probe at depth D (the whole
+// key tile; a CTA copies the depths up to its longest bucket).
+static int probe_walk_smem(int D) { return D * kLanes * 8; }
+
+// Raises the walk-only probe's shared-memory limit to `smem`, once per
+// device and size.
+static void probe_walk_allow(int smem) {
+  static int allowed[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem > allowed[dev & 63]) {
+    cudaFuncSetAttribute(probe_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    allowed[dev & 63] = smem;
+  }
+}
+
+// CTAs of the walk-only probe at depth D that the current card holds at once.
+int tpq_probe_walk_slots(int D) {
+  const int smem = probe_walk_smem(D);
+  probe_walk_allow(smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_walk_kernel, kWalkThreads, smem);
+  return sms * per_sm;
+}
+
+// One CTA per `chunk` padded queries of a partition. outs holds K * npay
+// column pointers, rank-major. t_key and blen 16-byte aligned.
+int tpq_probe_walk(const int64_t* t_key, const int64_t* const* t_pays, int npay,
+                   const int32_t* blen, int npart, int D, int K, int probe_cap, int chunk,
+                   const int64_t* qk, const int32_t* lane, const int32_t* qocc, int32_t* cnt,
+                   int32_t* dfirst, int64_t* const* outs, cudaStream_t stream) {
+  if (K < 1 || K > kMaxK || npay < 0 || npay > TPQ_MAX_COLS || npart < 1 ||
+      probe_cap < 1 || chunk < 1 || D < 1 || probe_walk_smem(D) > kSmemLimit - 1024)
     return int(cudaErrorInvalidValue);
   ProbeCols cols;
   cols.n = npay;
   for (int i = 0; i < npay; i++) cols.tpay[i] = t_pays[i];
   for (int i = 0; i < K * npay; i++) cols.out[i] = outs[i];
-  const size_t smem = size_t(D) * kLanes * sizeof(int64_t);
-  cudaFuncSetAttribute(probe_walk_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  const unsigned grid =
-      unsigned(int64_t((probe_cap + kChunk - 1) / kChunk) * npart);
-  probe_walk_kernel<<<grid, kThreads, smem, stream>>>(
-      t_key, blen, qk, lane, qocc, D, K, probe_cap, cnt, dfirst, cols);
+  const int smem = probe_walk_smem(D);
+  probe_walk_allow(smem);
+  const int64_t grid = int64_t(npart) * ((probe_cap + chunk - 1) / chunk);
+  probe_walk_kernel<<<unsigned(grid), kWalkThreads, smem, stream>>>(
+      t_key, blen, qk, lane, qocc, D, K, probe_cap, chunk, cnt, dfirst, cols);
   return int(cudaGetLastError());
 }
 

@@ -38,9 +38,10 @@ _SIGNATURES = {
                       P, P, P, P, I64, P, I64, U32, P, P],
     "tpq_walk_emit_smem": [I32, I32, I32],
     "tpq_walk_emit_slots": [I32, I32, I32],
-    "tpq_probe_walk": [P, P, I32, P, I32, I32, I32, I32, P, P, P, P, P, P, P],
+    "tpq_probe_walk": [P, P, I32, P, I32, I32, I32, I32, I32, P, P, P, P, P, P, P],
+    "tpq_probe_walk_slots": [I32],
     "tpq_split_digit": [P, P, I32, P, P, P, I32, I32, I64, P, I64, P],
-    "tpq_radix_histogram": [P, I64, I32, P, P],
+    "tpq_radix_histogram": [P, I64, I32, P, P, I64, P],
     "tpq_copy": [P, P, I64, P],
 }
 

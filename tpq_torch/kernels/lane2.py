@@ -28,40 +28,23 @@ from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.kernels import _build
 from tpq_torch.kernels.lane_table import (L, MAX_K, SMEM_LIMIT, LanePlan,
                                           LaneTables, _probe_emit_common,
-                                          _probe_layout, build_lane_tables, walk_ref)
+                                          _probe_layout, build_lane_tables, walk_ref,
+                                          work_item_queries)
 from tpq_torch.kernels.move import MAX_COLS, _pack_state
 
 I32 = torch.int32
 I64 = torch.int64
 QROWS = 32  # tpq's query tile rows; the plan keeps its sizing rule
-MAX_CHUNK = 4096  # padded queries per work item of the kernel (kMaxChunk in lane2.cu)
-# what a CTA of the walk/emit costs beside its queries, in queries: the
-# tile copy, the ticket and the look-back. Fitted to chip_smoke.py's
-# sweeps of queries per CTA (PERF.md): with it work_item_queries picks
-# the fastest size measured at configs 1 and 5 and at config 3's heavy
-# table (1,024, 3,072 and 4,096 queries).
-CTA_OVERHEAD_QUERIES = 1024
 
 
 @functools.lru_cache(maxsize=None)
-def _ctas_at_once(device_index: int, depth: int, k: int, chunk: int) -> int:
-    """CTAs of the walk/emit at this work-item size the card holds at once."""
-    return _build.lib().tpq_walk_emit_slots(depth, k, chunk)
-
-
-def work_item_queries(plan: LanePlan, device_index: int) -> int:
-    """Padded queries per CTA of the walk/emit: of a whole partition (up
-    to MAX_CHUNK), 2,048 and 1,024, the size with the least waves x (CTA
-    overhead + queries), a wave being the CTAs the card holds at once."""
-    best = None
-    for chunk in sorted({min(plan.probe_cap, q) for q in (MAX_CHUNK, 2048, 1024)},
-                        reverse=True):
-        nwork = plan.npart * -(-plan.probe_cap // chunk)
-        ctas = max(1, _ctas_at_once(device_index, plan.depth, plan.inline_k, chunk))
-        cost = -(-nwork // ctas) * (CTA_OVERHEAD_QUERIES + chunk)
-        if best is None or cost < best[0]:
-            best = (cost, chunk)
-    return best[1]
+def walk_emit_chunk(plan: LanePlan, device_index: int) -> int:
+    """work_item_queries of the fused walk/emit, kept per plan and card
+    (its wrapper asks on every call); its CTAs at once depend on the size
+    through its shared memory."""
+    lib = _build.lib()
+    return work_item_queries(
+        plan, lambda chunk: lib.tpq_walk_emit_slots(plan.depth, plan.inline_k, chunk))
 
 
 def plan_lane2(r_capacity: int, s_capacity: int, depth: int = 48,
@@ -132,7 +115,8 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
     dev = qk.device
     if not 1 <= K <= MAX_K:
         raise ValueError(f"fused_walk_emit: K {K} outside 1..{MAX_K}")
-    chunk = work_item_queries(plan, dev.index)
+    with _build.on_device(qk):
+        chunk = walk_emit_chunk(plan, dev.index)
     lib = _build.lib()
     if lib.tpq_walk_emit_smem(D, K, chunk) + 1024 > SMEM_LIMIT:
         raise ValueError(f"fused_walk_emit: depth {D} does not fit shared memory")
@@ -235,7 +219,7 @@ def lane2_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     if probe_keep is not None:
         raise NotImplementedError(
             "probe_keep needs the filter operator's compact for the fallback, "
-            "not yet ported (ROADMAP.md Queue 1 item 6)")
+            "not yet ported (ROADMAP.md Queue 1 item 1)")
     if plan is None:
         plan = plan_lane2(r.capacity, s.capacity, out_capacity=out_capacity)
     r_names = [n for n in r.names if n != key]

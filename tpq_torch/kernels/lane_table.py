@@ -34,6 +34,7 @@ int64 inside the join and narrowed back at its output.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,6 +52,13 @@ I64 = torch.int64
 L = 128
 MAX_K = 8  # kMaxK in csrc/lane2.cu: inline ranks probe_walk emits
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+MAX_CHUNK = 4096  # padded queries per work item of the walk/emit (kMaxChunk in lane2.cu)
+# what a CTA of the walk/emit costs beside its queries, in queries: the
+# tile copy, the ticket and the look-back. Fitted to chip_smoke.py's
+# sweeps of queries per CTA (PERF.md): with it work_item_queries picks
+# the fastest size measured at configs 1 and 5 and at config 3's heavy
+# table (1,024, 3,072 and 4,096 queries).
+CTA_OVERHEAD_QUERIES = 1024
 SALT_LANE = 0x1A9E0001
 SALT_H2 = 0x1A9E0002
 
@@ -200,6 +208,37 @@ def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
 
 
 # ---------------------------------------------------------------------------
+# work items of the walk kernels
+# ---------------------------------------------------------------------------
+
+def work_item_queries(plan: LanePlan, ctas_at_once) -> int:
+    """Padded queries per CTA of a walk kernel: of a whole partition (up
+    to MAX_CHUNK), 2,048 and 1,024, the size with the least waves x (CTA
+    overhead + queries), a wave being ctas_at_once(size), the CTAs of the
+    kernel at that size that the card holds at once."""
+    best = None
+    for chunk in sorted({min(plan.probe_cap, q) for q in (MAX_CHUNK, 2048, 1024)},
+                        reverse=True):
+        nwork = plan.npart * -(-plan.probe_cap // chunk)
+        cost = -(-nwork // max(1, ctas_at_once(chunk))) * (CTA_OVERHEAD_QUERIES + chunk)
+        if best is None or cost < best[0]:
+            best = (cost, chunk)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def probe_walk_chunk(plan: LanePlan, device_index: int) -> int:
+    """work_item_queries of the walk-only probe, kept per plan and card
+    (its wrapper asks on every call). Its CTAs at once do not depend on
+    the size: the whole key tile is its shared memory. Its cost per CTA
+    is taken to be the walk/emit's; chip_smoke.py's sweeps show the pick
+    the fastest size at config 3's membership and at config 1's tables
+    (PERF.md)."""
+    slots = _build.lib().tpq_probe_walk_slots(plan.depth)
+    return work_item_queries(plan, lambda chunk: slots)
+
+
+# ---------------------------------------------------------------------------
 # the walk-only probe (kernel 4)
 # ---------------------------------------------------------------------------
 
@@ -269,10 +308,13 @@ def probe_walk(tables: LaneTables, qk, lane, qocc):
                              f"{dev}, got {t.dtype}{tuple(t.shape)} on {t.device}")
         return t.contiguous()
 
+    def aligned(t):  # the tile copy and the bucket lengths' loads take 16 bytes
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
     tshape = (npart, D, L)
-    t_key = need(tables.key, tshape, I64, "table key")
+    t_key = aligned(need(tables.key, tshape, I64, "table key"))
     t_pays = [need(t, tshape, I64, "table payload") for t in tables.pays]
-    blen = need(tables.blen, (npart, L), I32, "blen")
+    blen = aligned(need(tables.blen, (npart, L), I32, "blen"))
     qk = need(qk, (u,), I64, "query key")
     lane = need(lane, (u,), I32, "lane")
     qocc = need(qocc, (u,), I32, "qocc")
@@ -281,10 +323,11 @@ def probe_walk(tables: LaneTables, qk, lane, qocc):
     d_first = torch.empty(u, dtype=I32, device=dev)
     pays = [[torch.empty(u, dtype=I64, device=dev) for _ in t_pays]
             for _ in range(K)]
-    with torch.cuda.device(dev):
+    with _build.on_device(qk):
+        chunk = probe_walk_chunk(plan, dev.index)
         code = _build.lib().tpq_probe_walk(
             t_key.data_ptr(), _build.ptr_array(t_pays), len(t_pays),
-            blen.data_ptr(), npart, D, K, probe_cap, qk.data_ptr(),
+            blen.data_ptr(), npart, D, K, probe_cap, chunk, qk.data_ptr(),
             lane.data_ptr(), qocc.data_ptr(), cnt.data_ptr(), d_first.data_ptr(),
             _build.ptr_array([o for row in pays for o in row]),
             _build.stream_of(qk))

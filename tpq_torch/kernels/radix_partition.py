@@ -3,12 +3,12 @@ padded per-partition planes (port of tpq/kernels/radix_partition.py).
 
   * radix_histogram(bucket, nbuckets): the count of each id in
     [0, nbuckets), other ids ignored. It runs
-    tpq_torch/csrc/radix_partition.cu on CUDA tensors and
-    `radix_histogram_ref`, its plain torch version, on CPU tensors; the
-    distributed join's capacity planner calls it. tpq's `tile` and
-    `interpret` arguments are dropped (a CUDA grid-stride loop has no
-    tile, and the CPU runs the plain version), and with `tile` its
-    N % tile == 0 requirement: the kernel takes any N.
+    tpq_torch/csrc/radix_partition.cu (one launch, no memset) on CUDA
+    tensors and `radix_histogram_ref`, its plain torch version, on CPU
+    tensors; the distributed join's capacity planner calls it. tpq's
+    `tile` and `interpret` arguments are dropped (a CUDA grid-stride loop
+    has no tile, and the CPU runs the plain version), and with `tile` its
+    N % tile == 0 requirement: the kernel takes any N at any offset.
   * partition_starts, padded_gather, partition_padded: plain torch, one
     stable sort, a searchsorted and a gather, as tpq's are.
 """
@@ -23,6 +23,18 @@ from tpq_torch.ops.union_join import _stable_lexsort
 I32 = torch.int32
 I64 = torch.int64
 MAX_BUCKETS = 232448 // 4  # int32 bins in a Hopper block's shared memory
+
+# (device index, stream) -> int32 words: the kernel's ticket and bucket
+# accumulator, zero between calls (the kernel leaves them so)
+_HIST_STATE: dict = {}
+
+
+def _hist_state(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    key = (device.index, stream)
+    st = _HIST_STATE.get(key)
+    if st is None or st.numel() < words:
+        st = _HIST_STATE[key] = torch.zeros(max(words, 64), dtype=I32, device=device)
+    return st
 
 
 def radix_histogram_ref(bucket: torch.Tensor, nbuckets: int) -> torch.Tensor:
@@ -54,9 +66,12 @@ def radix_histogram(bucket: torch.Tensor, nbuckets: int) -> torch.Tensor:
         return torch.zeros(nbuckets, dtype=I32, device=bucket.device)
     bucket = bucket.contiguous()
     out = torch.empty(nbuckets, dtype=I32, device=bucket.device)
-    with torch.cuda.device(bucket.device):
+    stream = _build.stream_of(bucket)
+    acc = _hist_state(bucket.device, stream, nbuckets + 1)
+    with _build.on_device(bucket):
         code = _build.lib().tpq_radix_histogram(
-            bucket.data_ptr(), n, nbuckets, out.data_ptr(), _build.stream_of(bucket))
+            bucket.data_ptr(), n, nbuckets, out.data_ptr(), acc.data_ptr(), acc.numel(),
+            stream)
     _build.check(code, "radix_histogram")
     radix_histogram.launches += 1
     return out

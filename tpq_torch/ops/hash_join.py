@@ -32,7 +32,7 @@ def hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     if probe_keep is not None:
         raise NotImplementedError(
             "probe_keep needs the filter operator's predicate front end and "
-            "pipeline, not yet ported (ROADMAP.md Queue 1 item 6)")
+            "pipeline, not yet ported (ROADMAP.md Queue 1 item 1)")
     if impl == "skew":
         from tpq_torch.ops.skew_join import skew_hash_join
 

@@ -20,7 +20,7 @@ This operator splits the key set instead:
   5. SPLICE — the heavy buffer written at light.num_rows.
 
 Any static violation (list overflow, mini-table overflow, lane caps,
-splice room) sends the whole join through the union-sort engine. tpq
+heavy rows past the heavy buffer, splice room) sends the whole join through the union-sort engine. tpq
 decides with lax.cond; here it is one host branch on `ok` (one device
 sync), as in lane2_hash_join.
 """
@@ -128,8 +128,11 @@ def _split(r: Table, s: Table, out_capacity: int, key: str, heavy_cap: int,
                                            r_dtypes=r_dtypes)
 
     ok_splice = light_out.num_rows.to(I64) + heavy_out_cap <= out_capacity
+    # tpq/ops/skew_join.py:165-167 lacks this guard and splices a heavy
+    # buffer cut at its capacity; the port falls back there on purpose
+    ok_heavy_rows = heavy_out.num_rows <= heavy_out_cap
     ok = (ok_nom & list_tables.ok & (r_heavy.sum() <= mini_cap)
-          & mini_tables.ok & ok_heavy & ok_light & ok_splice)
+          & mini_tables.ok & ok_heavy & ok_heavy_rows & ok_light & ok_splice)
     return light_out, heavy_out, ok
 
 
