@@ -48,7 +48,32 @@ Phases, one line each; any failure raises and exits non-zero:
                 dense+lane+skew variant through the process-group mesh as
                 a one-rank NCCL group (localhost), its rows equal to the
                 one-process mesh's;
-  9. config5  — dist_125m_8shard, eight shards on the card: the
+ 9. config4  — the filter -> hash join -> hash aggregate pipeline:
+                smoke_pipeline through full_pipeline(algo="hash") with the
+                lane and the sorted join, each byte-equal to the C++
+                oracle's filter | join | aggregate; then pipeline_100m
+                unchunked through the bench runner's pipeline (dim 2^20
+                rows, fact 100,000,000 rows with 2 payloads, filter key <
+                2^19, out capacity 2^27): one pipeline with every launch
+                count zeroed just before it and read just after (PAD,
+                PACK and the fused walk/emit launched, nothing else), the
+                lane pushdown path taken, every group's key, count and
+                sums equal to numpy's; the pipeline once more with every
+                call of those kernels held, as it is made, byte-equal to
+                its plain version; the fused walk/emit's call timed, and
+                the aggregate's PACK call (the largest PACK call) beside
+                the boolean-mask library call; end-to-end ms,
+                fact rows/s, groups, join rows and peak memory;
+ 10. config4_chunked — scale_bench.bench_pipeline at 100M fact rows in
+                chunks of 2^22 on the device streams: every group exact
+                against numpy, every chunk on the lane path; the dense
+                accumulator's PAD call (its last) timed beside index_copy_;
+ 11. config2  — scale_bench.bench_build_sweep, 10M x 100M with 4 payloads
+                in chunks of 2^24: the count exact against numpy's, every
+                chunk on the lane path;
+ 12. entry    — tpq_torch.query.entry() on the card, byte-equal to the
+                oracle's filter | join | aggregate at its shapes;
+ 13. config5  — dist_125m_8shard, eight shards on the card: the
                 histogram kernel at the arguments plan_dist_capacities
                 hands it (all 16 calls byte-equal to the plain version,
                 the first timed); dist_hash_join_planned(local_impl=
@@ -65,8 +90,9 @@ Phases, one line each; any failure raises and exits non-zero:
                 equal to the single-card lane join's; end-to-end and
                 planning ms, peak memory.
 The line before the last is the kernels' JSON record: `launches` is the
-sum over the four paths of the launches in their one counted join, and
-`launches_per_join` gives them path by path. The last line is
+sum over the five paths (config 1, config 3, the radix merge, config 4's
+pipeline, config 5) of the launches in their one counted join or
+pipeline, and `launches_per_join` gives them path by path. The last line is
 {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -626,8 +652,9 @@ def hist_phase(K, calls, nshards):
            5, err, n * 4 + nb * 4, library=library)
 
 
-def oracle_rows(r_np, s_np, algo="hash"):
-    """The C++ oracle's canonical join of the two relations."""
+def oracle_run(cmd, inputs: dict, **flags):
+    """The C++ oracle's `cmd` on host columns (`inputs` by flag name);
+    returns its output columns."""
     from tpq_torch import colio
 
     os.makedirs(ORACLE_DIR, exist_ok=True)
@@ -635,15 +662,27 @@ def oracle_rows(r_np, s_np, algo="hash"):
     if not os.path.exists(exe):
         subprocess.run(["g++", "-std=c++17", "-O2", "-o", exe,
                         os.path.join(ROOT, "oracle", "main.cc")], check=True)
-    paths = [os.path.join(ORACLE_DIR, f"smoke_{x}.tpqc") for x in ("r", "s", "out")]
-    colio.dump(paths[0], r_np)
-    colio.dump(paths[1], s_np)
-    subprocess.run([exe, "join", f"--algo={algo}", f"--left={paths[0]}",
-                    f"--right={paths[1]}", f"--out={paths[2]}"], check=True)
-    out = colio.load(paths[2])
-    for p in paths:
+    paths = {k: os.path.join(ORACLE_DIR, f"smoke_{k}.tpqc") for k in (*inputs, "out")}
+    for k, cols in inputs.items():
+        colio.dump(paths[k], cols)
+    subprocess.run([exe, cmd] + [f"--{k}={v}" for k, v in flags.items()]
+                   + [f"--{k}={p}" for k, p in paths.items()], check=True)
+    out = colio.load(paths["out"])
+    for p in paths.values():
         os.remove(p)
     return out
+
+
+def oracle_rows(r_np, s_np, algo="hash"):
+    """The C++ oracle's canonical join of the two relations."""
+    return oracle_run("join", {"left": r_np, "right": s_np}, algo=algo)
+
+
+def oracle_pipeline(dim_np, fact_np, value):
+    """The C++ oracle's filter (key < value) | join | aggregate, chained
+    as tests/test_query.py chains it."""
+    fact_f = oracle_run("filter", {"in": fact_np}, col="key", op="lt", value=value)
+    return oracle_run("aggregate", {"in": oracle_rows(dim_np, fact_f)})
 
 
 def relations_np(cfg):
@@ -863,6 +902,187 @@ def dryrun_phase(dev):
                     f"1-shard one's")
 
 
+def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
+    """Config 4's pipeline: smoke_pipeline against the oracle, then
+    pipeline_100m unchunked through the bench runner; returns the
+    launches of its one counted pipeline."""
+    from tpq_torch import Table
+    from tpq_torch.bench.runner import gen, join_fn, out_capacity_for, run_config
+    from tpq_torch.bench.scale_bench import groups_equal, pipeline_truth
+    from tpq_torch.columnar import canonicalize, tables_equal
+    from tpq_torch.kernels import lane2
+    from tpq_torch.query import full_pipeline
+
+    # the `ok` (and whether `keep` was pushed down) of each probe/emit
+    # that a pipeline's lane join makes itself
+    probe_emit, oks = lane2.lane2_probe_emit, []
+
+    def recording_probe_emit(*args, **kwargs):
+        out, ok = probe_emit(*args, **kwargs)
+        oks.append((kwargs.get("keep") is not None, bool(ok)))
+        return out, ok
+
+    def lane_path_taken(run):
+        oks.clear()
+        lane2.lane2_probe_emit = recording_probe_emit
+        try:
+            result = run()
+        finally:
+            lane2.lane2_probe_emit = probe_emit
+        return result, oks == [(True, True)]
+
+    dim_np, fact_np = relations_np(smoke_cfg)
+    value, cap = smoke_cfg.filter_value, out_capacity_for(smoke_cfg)
+    want = oracle_pipeline(dim_np, fact_np, value)
+    dim, fact = Table.from_numpy(dim_np, device=dev), Table.from_numpy(fact_np, device=dev)
+    for impl in ("lane", "sorted"):
+        out, taken = lane_path_taken(lambda: full_pipeline(
+            dim, fact, "key", "lt", value, cap, algo="hash", join_impl=impl))
+        check(tables_equal(canonicalize(out), want),
+              f"smoke_pipeline ({impl} join) differs from the C++ oracle")
+        if impl == "lane":
+            check(taken, f"smoke_pipeline: the lane pushdown fell back ({oks})")
+    phase("config4", f"smoke_pipeline: {len(want['key'])} groups, lane (pushdown path "
+                     f"taken) and sorted joins byte-equal to the C++ oracle's filter | "
+                     f"join | aggregate")
+
+    # pipeline_100m; the numpy ground truth assumes the preset's streams
+    check((cfg.r.rows, cfg.r.nkeys, cfg.r.payloads, cfg.r.seed, cfg.s.nkeys, cfg.s.seed,
+           cfg.join.algo, cfg.join.impl) == (1 << 20, 1 << 20, 1, 1, 1 << 20, 2, "hash", "lane"),
+          f"{cfg.name} is not the relations pipeline_truth makes")
+    value = cfg.filter_value
+    t0 = time.perf_counter()
+    truth = pipeline_truth(cfg.r.rows, cfg.s.rows, cfg.s.payloads, value)
+    join_rows = int(truth["count"].sum())
+    phase("config4", f"{cfg.name}: numpy ground truth {len(truth['key'])} groups of "
+                     f"{join_rows} join rows ({time.perf_counter() - t0:.1f} s)")
+    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+    out_cap = out_capacity_for(cfg)
+    pipe = join_fn(cfg, r, s, out_cap)
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, taken = lane_path_taken(pipe)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: w.launches for k, w in ws.items()}
+    phase("config4", f"one pipeline (dim {cfg.r.rows}, fact {cfg.s.rows} rows of capacity "
+                     f"{s.capacity}, out capacity {out_cap}): launches {launches}; peak "
+                     f"memory {peak} B")
+    expect = {"pad", "pack", "fused_walk_emit"}
+    check(all((v > 0) == (k in expect) for k, v in launches.items()),
+          f"expected launches of exactly {sorted(expect)}: {launches}")
+    got = out.to_numpy()
+    check(len(got["key"]) == len(truth["key"]) and groups_equal(got, truth),
+          f"{len(got['key'])} groups differ from numpy's {len(truth['key'])}")
+    del out, got
+    check(taken, f"pipeline_100m: the counted pipeline's lane pushdown fell back ({oks})")
+    phase("config4", f"lane pushdown path taken (the `ok` of the counted pipeline's own "
+                     f"lane2_probe_emit(keep=...)); every group's key, count and sums equal "
+                     f"to numpy's ({len(truth['key'])} groups)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    held, largest, walk_ms = hold_kernel_calls(pipe)
+    for name, (calls, err) in held.items():
+        check(calls == launches[name], f"{name}: {calls} calls held, {launches[name]} "
+                                       f"launched")
+        check(err == 0, f"{name} differs from its plain version at config 4's arguments "
+                        f"(max_abs_err {err})")
+    check(set(held) == expect, f"held {sorted(held)}")
+    phase("config4", "every kernel call of a pipeline byte-equal to its plain version: "
+          + ", ".join(f"{k} {c}" for k, (c, _) in held.items())
+          + f" ({time.perf_counter() - t0:.1f} s); fused walk/emit on the card alone "
+          + ", ".join(f"{t:.4f}" for t in walk_ms) + " ms")
+    del r, s, pipe
+    largest.pop("pad")
+    torch.cuda.empty_cache()
+    K.rec["fused_walk_emit"]["config4"] = fused_phase(
+        K, largest.pop("fused_walk_emit"), "config-4 pipeline", record=False)
+    K.rec["fused_walk_emit"]["config4"]["device_ms_in_pipeline"] = walk_ms
+    torch.cuda.empty_cache()
+    cols, occ = largest["pack"]
+    check(len(cols) == 5 and occ.shape[0] == out_cap
+          and all(c.dtype == torch.int64 for c in cols),
+          "the largest PACK call is not the aggregate's")
+    K.rec["pack"]["config4_aggregate"] = pack_phase(
+        K, largest["pack"], "config-4 aggregate (largest call)", record=False)
+    del largest, cols, occ
+    torch.cuda.empty_cache()
+
+    report = run_config(cfg, hbm_bw=hbm_bw, device=dev)
+    op = report["ops"][0]
+    check(op["op"] == "pipeline", f"the pipeline's lane path not taken: {op['op']}")
+    check(report["out_rows"] == len(truth["key"]), "the runner's pipeline groups")
+    del report
+    torch.cuda.empty_cache()
+    phase("config4", f"pipeline: end_to_end {op['elapsed_ms']:.4f} ms, "
+                     f"{op['rows_per_sec']:.6e} fact rows/s, {len(truth['key'])} groups, "
+                     f"{join_rows} join rows, peak memory {peak} B, roofline "
+                     f"{op['roofline_pct']:.2f}% (byte model {op['model_bytes']} B)")
+    return launches
+
+
+def config4_chunked_phase(dev, K):
+    """scale_bench.bench_pipeline at 100M fact rows; the accumulator's
+    PAD call of its last chunk timed."""
+    from tpq_torch.bench import scale_bench
+
+    calls, pad = [], scale_bench.pad
+
+    def last_call(*args):
+        calls[:] = [args]
+        return pad(*args)
+
+    scale_bench.pad = last_call
+    try:
+        rep = scale_bench.bench_pipeline(device=dev, log=lambda _: None)
+    finally:
+        scale_bench.pad = pad
+    check(rep["groups_exact"], "config 4 chunked: groups differ from numpy's")
+    check(rep["lane_path_taken_all_chunks"], "config 4 chunked: a chunk fell back")
+    phase("config4_chunked", f"{rep['n_fact']} fact rows in {rep['nchunks']} chunks of "
+                             f"{rep['chunk_rows']}: {rep['groups']} groups exact against "
+                             f"numpy, {rep['join_rows']} join rows, lane path taken in "
+                             f"every chunk; {rep['elapsed_ms']:.4f} ms (build "
+                             f"{rep['build_ms']:.4f}), {rep['fact_rows_per_sec']:.6e} fact "
+                             f"rows/s, roofline {rep['roofline_pct']:.2f}%")
+    K.rec["pad"]["config4_accumulator"] = pad_phase(
+        K, calls[0], "config-4 chunked accumulator", record=False)
+    del calls
+    torch.cuda.empty_cache()
+
+
+def config2_phase(dev):
+    from tpq_torch.bench.scale_bench import bench_build_sweep
+
+    rep = bench_build_sweep(device=dev, log=lambda _: None)
+    check(rep["count_exact"], "config 2: the count differs from numpy's")
+    check(rep["lane_path_taken_all_chunks"], "config 2: a chunk fell back")
+    phase("config2", f"{rep['n_build']} x {rep['n_probe']} rows, {rep['payloads']} "
+                     f"payloads, {rep['nchunks']} chunks of {rep['chunk_rows']}: "
+                     f"{rep['out_rows']} join rows == numpy's count, lane path taken in "
+                     f"every chunk; {rep['elapsed_ms']:.4f} ms (build "
+                     f"{rep['build_ms']:.4f}), {rep['probe_rows_per_sec']:.6e} probe "
+                     f"rows/s, roofline {rep['roofline_pct']:.2f}%")
+    torch.cuda.empty_cache()
+
+
+def entry_phase(dev):
+    from tpq_torch.columnar import canonicalize, tables_equal
+    from tpq_torch.query import entry
+
+    fn, (dim, fact, value) = entry(device=dev)
+    check(dim.device.type == dev.type, "entry() placed its relations off the card")
+    out = fn(dim, fact, value)
+    want = oracle_pipeline(dim.to_numpy(), fact.to_numpy(), value)
+    check(tables_equal(canonicalize(out), want), "entry() differs from the C++ oracle")
+    phase("entry", f"entry(): {int(out.num_rows)} groups byte-equal to the C++ oracle's "
+                   f"filter | join | aggregate")
+
+
 def config5_phase(dev, K, cfg):
     """The distributed join at dist_125m_8shard; returns its launches."""
     from tpq_torch import Table
@@ -1023,7 +1243,12 @@ def main():
     K = kernel_phase(dev, cfg1, cfg3, hbm_bw)
     per_join = {"config1": config1_phase(dev, cfg1, hbm_bw),
                 "config3": config3_phase(dev, cfg3, hbm_bw),
-                "merge": merge_phase(dev, cfg1, hbm_bw)}
+                "merge": merge_phase(dev, cfg1, hbm_bw),
+                "config4": config4_phase(dev, K, PRESETS["smoke_pipeline"],
+                                         PRESETS["pipeline_100m"], hbm_bw)}
+    config4_chunked_phase(dev, K)
+    config2_phase(dev)
+    entry_phase(dev)
     fallback_phase(dev)
     dryrun_phase(dev)
     per_join["dist"] = config5_phase(dev, K, PRESETS["dist_125m_8shard"])

@@ -509,3 +509,73 @@ def test_radix_merge_on_card_matches_cpu(dev):
                         sort_engine="radix")
     assert int(on_card.num_rows) == int(on_cpu.num_rows)
     assert tables_equal(canonicalize(on_card), canonicalize(on_cpu))
+
+
+def test_aggregate_pack_on_card_matches_plain(dev, monkeypatch):
+    """The aggregate's PACK call (key, row index and three cumsums of 2^19
+    rows, about 200,000 of them group ends), byte-equal to the plain version; the whole
+    aggregate equals the CPU's row for row, twice (a two-row group's sum
+    wraps)."""
+    from tpq_torch.ops import filter as filter_op
+    from tpq_torch.ops.hash_aggregate import hash_aggregate
+
+    cols = datagen.gen_relation_np(400_000, 250_000, payloads=3, seed=12)
+    calls = []
+
+    def rec(planes, occ, _pack=filter_op.pack):
+        calls.append((planes, occ))
+        return _pack(planes, occ)
+
+    monkeypatch.setattr(filter_op, "pack", rec)
+    on_card = [hash_aggregate(Table.from_numpy(cols, device=dev)) for _ in range(2)]
+    (args,) = calls[:1]
+    assert len(calls) == 2 and len(args[0]) == 5 and args[1].shape[0] == 1 << 19
+    got, want = pack(*args), pack_ref(*args)
+    _eq(got[1], want[1])
+    for a, b in zip(got[0], want[0]):
+        _eq(a, b)
+    on_cpu = hash_aggregate(Table.from_numpy(cols, device="cpu"))
+    n = int(on_cpu.num_rows)
+    assert int(on_card[0].num_rows) == n > 150_000
+    for k in on_cpu.columns:
+        _eq(on_card[0].columns[k][:n].cpu(), on_cpu.columns[k][:n])
+        _eq(on_card[0].columns[k], on_card[1].columns[k])
+
+
+def test_accumulator_pad_on_card_matches_plain(dev, monkeypatch):
+    """The chunked config-4 bench on the card at 600,000 fact rows in
+    chunks of 2^18: each chunk's groups PADded into the dense accumulator
+    (196,608 aggregate rows into 131,072 slots) byte-equal to the plain
+    version, every group exact against numpy, every chunk on the lane
+    path."""
+    from tpq_torch.bench import scale_bench
+
+    calls = []
+
+    def rec(planes, dest, n_live, out_len, _pad=scale_bench.pad):
+        calls.append((planes, dest, n_live, out_len))
+        return _pad(planes, dest, n_live, out_len)
+
+    monkeypatch.setattr(scale_bench, "pad", rec)
+    rep = scale_bench.bench_pipeline(n_dim=1 << 18, n_fact=600_000, chunk_rows=1 << 18,
+                                     filter_value=1 << 17, device=dev, log=lambda _: None)
+    assert rep["groups_exact"] and rep["lane_path_taken_all_chunks"]
+    assert len(calls) == 1 + rep["nchunks"]  # the warm-up chunk, then each chunk
+    for args in calls:
+        assert args[1].shape[0] == 196_608 and args[3] == 1 << 17
+        got, want = pad(*args), pad_ref(*args)
+        _eq(got[1], want[1])
+        for a, b in zip(got[0], want[0]):
+            _eq(a, b)
+
+
+def test_gen_relation_device_on_card_equals_numpy(dev):
+    """The on-device streams on the card, byte-equal to numpy's at a
+    2^24-row offset and a key domain that is not a power of two."""
+    off, rows = 1 << 24, 300_000
+    t = datagen.gen_relation_device(rows, 10_000_000, 4, seed=2, row_offset=off,
+                                    device=dev)
+    want = datagen.gen_relation_np(off + rows, 10_000_000, 4, seed=2)
+    for k, v in t.columns.items():
+        assert v.device.type == "cuda"
+        assert np.array_equal(v[:rows].cpu().numpy(), want[k][off:]), k

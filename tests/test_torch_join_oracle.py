@@ -19,6 +19,7 @@ from tpq_torch.kernels import radix_sort
 from tpq_torch.kernels.lane2 import lane2_path_taken
 from tpq_torch.kernels.lane_table import LanePlan
 from tpq_torch.ops import hash_join
+from tpq_torch.ops.filter import compact
 from tpq_torch.ops.union_join import union_join, union_sort_specs
 
 from conftest import assert_tables_equal
@@ -190,10 +191,17 @@ def test_runner_cli_selects_the_radix_merge(monkeypatch):
 
 
 def test_unported_paths_raise():
-    R = Table.from_numpy({"key": np.arange(8, dtype=np.int64)}, device="cpu")
-    keep = torch.ones(8, dtype=torch.bool)
+    """The paths that raised before the pipeline was ported now run:
+    probe_keep on every impl gives the join of the compacted probe side,
+    and the runner runs a pipeline preset. Nothing of them raises."""
+    rng = np.random.default_rng(9)
+    r = {"key": rng.integers(0, 40, 300), "p0": np.arange(300, dtype=np.int64)}
+    s = {"key": rng.integers(0, 40, 500), "p0": np.arange(500, dtype=np.int64)}
+    R, S = Table.from_numpy(r, device="cpu"), Table.from_numpy(s, device="cpu")
+    keep = S.col("key") < 25
+    want = canonicalize(union_join(R, compact(S, keep), 1 << 14))
     for impl in ("lane", "sorted", "skew"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hash_join(R, R, 64, impl=impl, probe_keep=keep)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_config(PRESETS["smoke_pipeline"], device="cpu")
+        got = hash_join(R, S, 1 << 14, impl=impl, probe_keep=keep)
+        assert_tables_equal(canonicalize(got), want, impl)
+    rep = run_config(PRESETS["smoke_pipeline"], device="cpu")
+    assert rep["ops"][0]["op"] == "pipeline" and rep["out_rows"] > 0

@@ -11,7 +11,9 @@ CLI (needs a card), with the bench runner's preset and join options:
   python -m tpq_torch.bench.profile --config=single_chip_1m --algo=merge \\
       --sort-engine=radix
   python -m tpq_torch.bench.profile --config=dist_125m_8shard
-(a preset with a mesh shape runs dist_hash_join_planned(local_impl=
+  python -m tpq_torch.bench.profile --config=pipeline_100m
+(a pipeline preset runs its filter -> join -> aggregate pipeline; a
+preset with a mesh shape runs dist_hash_join_planned(local_impl=
 "lane") on a one-process mesh of that many shards on the card)
 prints one JSON object: end-to-end ms per join, device busy ms per join,
 the device's idle share of the join (1 - busy / end to end), device
@@ -108,6 +110,8 @@ def main(argv=None):
         j = cfg.join
         what = (f"hash_join(impl={j.impl!r})" if j.algo == "hash"
                 else f"merge_join(sort_engine={j.sort_engine!r})")
+        if cfg.pipeline:
+            what = f"pipeline (filter key < {cfg.filter_value}, {what}, hash_aggregate)"
         fn = join_fn(cfg, r, s, out_capacity_for(cfg))
     report = {"config": cfg.name, "join": what, "card": card_info(),
               **profile_join(fn, dev)}

@@ -116,6 +116,16 @@ def aggregate_bytes(cap: int, ncols: int) -> OpBytes:
     return OpBytes(read=b, write=cap * row_bytes(ncols + 1))
 
 
+def pipeline_bytes(cap_r: int, ncols_r: int, cap_s: int, ncols_s: int,
+                   cap_out: int) -> dict[str, OpBytes]:
+    """The filter -> hash join -> hash aggregate pipeline (tpq's runner):
+    the filter of S, the join, and the aggregate of its output (key,
+    count and a sum per payload)."""
+    return {"filter": filter_bytes(cap_s, ncols_s),
+            **hash_join_bytes(cap_r, ncols_r, cap_s, ncols_s, cap_out),
+            "aggregate": aggregate_bytes(cap_out, 2 + (ncols_r - 1) + (ncols_s - 1))}
+
+
 @dataclass
 class RooflineResult:
     op: str

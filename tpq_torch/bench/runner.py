@@ -1,16 +1,21 @@
-"""Config-driven benchmark runner (port of tpq/bench/runner.py), for the
-joins so far: hash (lane, sorted, skew impls) and merge.
+"""Config-driven benchmark runner (port of tpq/bench/runner.py): the
+joins (hash with the lane, sorted and skew impls; merge) and, for a
+`pipeline` preset, the filter -> hash join -> hash aggregate pipeline
+(config 4, tpq_torch/query.py).
 
-Generates the seed-stable relations of a preset on the card, times the
-join with CUDA events after a warm-up, accounts it against the measured
-bandwidth roofline, and labels the row honestly when the lane or skew
-path fell back to the sorted engine. Times exist only for a run on a
-card: on the CPU, run_config runs the join once and reports no time.
+Generates the seed-stable relations of a preset on the card (uniform
+ones by the on-device streams), times the join or pipeline with CUDA
+events after a warm-up, accounts it against the measured bandwidth
+roofline, and labels the row honestly when the lane or skew path fell
+back to the sorted engine. Times exist only for a run on a card: on the
+CPU, run_config runs the operator once and reports no time.
 
 CLI:  python -m tpq_torch.bench.runner --config=single_chip_1m [--phases]
       [--algo hash|merge] [--impl lane|sorted|skew] [--sort-engine lax|radix]
-prints the bench.py one-line JSON under the metric
-hash_join_probe_rows_per_sec_1chip_torch as its last line.
+      python -m tpq_torch.bench.runner --config=pipeline_100m
+prints the bench.py one-line JSON as its last line: probe rows/s under
+the metric hash_join_probe_rows_per_sec_1chip_torch, or fact rows/s of
+the pipeline under pipeline_fact_rows_per_sec_1chip_torch.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ from tpq_torch.bench import roofline
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.config import PRESETS, BenchConfig, RelationSpec
 from tpq_torch.ops import hash_join, merge_join
+from tpq_torch.ops.filter import compact, keep_mask
+from tpq_torch.query import jit_pipeline
 
 METRIC = "hash_join_probe_rows_per_sec_1chip_torch"
+PIPELINE_METRIC = "pipeline_fact_rows_per_sec_1chip_torch"
 
 
 def gen_np(spec: RelationSpec) -> dict:
@@ -39,6 +47,12 @@ def gen_np(spec: RelationSpec) -> dict:
 
 
 def gen(spec: RelationSpec, device) -> Table:
+    """The relation a spec names, on `device`: a uniform one made there by
+    the on-device streams (byte-equal to gen_np's), a zipf one from the
+    host."""
+    if spec.kind == "uniform":
+        return datagen.gen_relation_device(spec.rows, spec.nkeys, spec.payloads,
+                                           spec.seed, device=device)
     return Table.from_numpy(gen_np(spec), device=device)
 
 
@@ -139,8 +153,12 @@ def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]
 
 
 def join_fn(cfg: BenchConfig, r: Table, s: Table, out_cap: int):
-    """The join a preset names, as a call with no arguments."""
+    """The join a preset names, or its pipeline for a `pipeline` preset
+    (filter key < filter_value), as a call with no arguments."""
     j = cfg.join
+    if cfg.pipeline:
+        pipe = jit_pipeline(out_cap, algo=j.algo, join_impl=j.impl)
+        return lambda: pipe(r, s, cfg.filter_value)
     if j.algo == "hash":
         return lambda: hash_join(r, s, out_cap, impl=j.impl)
     if j.algo == "merge":
@@ -165,28 +183,33 @@ def config_from_args(args) -> BenchConfig:
 
 def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
                device="cuda") -> dict:
-    """Runs a join preset on `device`. The report's "output" is the
-    join's Table from the last timed call."""
-    if cfg.pipeline:
-        raise NotImplementedError(
-            "the filter->join->aggregate pipeline is not yet ported "
-            "(ROADMAP.md Queue 1 item 1)")
+    """Runs a join or pipeline preset on `device`. The report's "output"
+    is the Table of the last timed call."""
     dev = torch.device(device)
     r, s = gen(cfg.r, dev), gen(cfg.s, dev)
     out_cap = out_capacity_for(cfg)
     fn = join_fn(cfg, r, s, out_cap)
     algo, impl = cfg.join.algo, cfg.join.impl
-    if algo == "hash":
+    if cfg.pipeline:
+        bytes_model, op = roofline.pipeline_bytes, "pipeline"
+    elif algo == "hash":
         bytes_model, op = roofline.hash_join_bytes, f"join_hash_{impl}"
     else:
         bytes_model, op = roofline.merge_join_bytes, f"join_merge_{cfg.join.sort_engine}"
     if algo == "hash" and impl in ("lane", "skew"):
         # honesty guard: the row says when the sorted fallback was measured
+        # (of the pipeline's join: the lane impl takes the filter as a
+        # mask, the skew impl the compacted relation)
+        keep = keep_mask(s, "key", "lt", cfg.filter_value) if cfg.pipeline else None
         if impl == "lane":
-            from tpq_torch.kernels.lane2 import lane2_path_taken as taken
+            from tpq_torch.kernels.lane2 import lane2_path_taken
+
+            ok = lane2_path_taken(r, s, out_cap, probe_keep=keep)
         else:
-            from tpq_torch.ops.skew_join import skew_path_taken as taken
-        if not bool(taken(r, s, out_cap)):
+            from tpq_torch.ops.skew_join import skew_path_taken
+
+            ok = skew_path_taken(r, s if keep is None else compact(s, keep), out_cap)
+        if not bool(ok):
             op += "_FELL_BACK_TO_SORTED"
 
     if dev.type == "cuda":
@@ -238,7 +261,7 @@ def main(argv=None):
     # speed of light at the measured bandwidth
     sol_rows_per_sec = op["rows"] / (op["sol_ms"] / 1e3)
     print(json.dumps({
-        "metric": METRIC,
+        "metric": PIPELINE_METRIC if cfg.pipeline else METRIC,
         "value": round(op["rows_per_sec"]),
         "unit": "rows/s",
         "vs_baseline": round(op["rows_per_sec"] / (0.8 * sol_rows_per_sec), 4),

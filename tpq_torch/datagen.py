@@ -14,11 +14,19 @@ to a counter, so no random generator state is involved.
 Columns are named "key", "p0".."p{P-1}". tpq's threaded native
 generator (tpq/native.py, used from 4M rows) is not carried over: the
 numpy stream it shortcuts is byte-identical.
+
+gen_relation_device makes a uniform relation on the device, byte-equal
+to gen_relation_np(kind="uniform"), so that the scale benches' 100M-row
+relations never cross from the host. Its uint64 arithmetic runs on the
+int64 bits: torch's int64 add and multiply wrap, its `>>` is arithmetic
+(so each right shift is masked), and `%` is a floor modulo of the signed
+value (so the key's unsigned modulo is rebuilt).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpq_torch.columnar import Table
 
@@ -94,3 +102,54 @@ def gen_relation(rows: int, nkeys: int, payloads: int = 1, seed: int = 0,
     return Table.from_numpy(
         gen_relation_np(rows, nkeys, payloads, seed, kind, theta), capacity,
         device=device)
+
+
+# ---------------------------------------------------------------------------
+# the on-device streams (port of tpq/datagen.py _splitmix64_dev,
+# _stream_dev and gen_relation_device)
+# ---------------------------------------------------------------------------
+
+def _i64(x: int) -> int:
+    """A u64 constant as the int64 with the same bits."""
+    x &= (1 << 64) - 1
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def _srl(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of the u64 bits in an int64 tensor."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def _splitmix64_dev(x: torch.Tensor) -> torch.Tensor:
+    z = x + _i64(GOLDEN)
+    z = (z ^ _srl(z, 30)) * _i64(0xBF58476D1CE4E5B9)
+    z = (z ^ _srl(z, 27)) * _i64(0x94D049BB133111EB)
+    return z ^ _srl(z, 31)
+
+
+def _stream_dev(seed: int, idx: torch.Tensor) -> torch.Tensor:
+    return _splitmix64_dev(_i64(seed) ^ (idx * _i64(0xD1342543DE82EF95)))
+
+
+def _umod(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The u64 bits of x modulo n: x + 2^64 for the negative ones."""
+    m = torch.remainder(x, n)
+    return torch.where(x < 0, torch.remainder(m + (2**64 % n), n), m)
+
+
+def gen_relation_device(rows: int, nkeys: int, payloads: int = 1, seed: int = 0,
+                        capacity: int | None = None, row_offset: int = 0,
+                        device="cuda") -> Table:
+    """Uniform relation made on `device`, byte-equal to
+    gen_relation_np(kind="uniform"). `row_offset` gives the global rows
+    [row_offset, row_offset + rows) of the stream, as the chunked benches
+    make each probe chunk; rows up to the capacity continue the stream."""
+    from tpq_torch.columnar import next_pow2
+
+    cap = capacity or next_pow2(rows)
+    idx = torch.arange(cap, dtype=torch.int64, device=device) + row_offset
+    cols = {"key": _umod(_stream_dev(seed, idx), nkeys)}
+    for j in range(payloads):
+        r = _stream_dev(seed ^ PAYLOAD_SALT, idx * payloads + j)
+        cols[f"p{j}"] = _srl(r, 1)  # non-negative
+    return Table(cols, rows)

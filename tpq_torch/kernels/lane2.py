@@ -199,35 +199,38 @@ def lane2_probe_emit(tables: LaneTables, s: Table, out_capacity: int,
 
 
 def lane2_path_taken(r: Table, s: Table, out_capacity: int, key: str = "key",
-                     plan: LanePlan | None = None) -> torch.Tensor:
+                     plan: LanePlan | None = None, probe_keep=None) -> torch.Tensor:
     """The `ok` flag lane2_hash_join branches on (bench honesty guard)."""
     if plan is None:
         plan = plan_lane2(r.capacity, s.capacity, out_capacity=out_capacity)
     r_names = [n for n in r.names if n != key]
     _, ok = lane2_probe_emit(build_lane2_tables(r, plan, key), s, out_capacity,
                              key=key, r_names=r_names,
-                             r_dtypes=[r.col(n).dtype for n in r_names])
+                             r_dtypes=[r.col(n).dtype for n in r_names],
+                             keep=probe_keep)
     return ok
 
 
 def lane2_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
                     plan: LanePlan | None = None, probe_keep=None) -> Table:
     """Lane join with the union-sort engine as the fallback on any
-    static-capacity violation."""
+    static-capacity violation. `probe_keep` (bool[s.capacity]) is a
+    pushed-down probe-side filter: the join of r with filter(s, keep),
+    its rows dropped in the probe layout (the config-4 fusion)."""
+    from tpq_torch.ops.filter import compact
     from tpq_torch.ops.union_join import union_join
 
-    if probe_keep is not None:
-        raise NotImplementedError(
-            "probe_keep needs the filter operator's compact for the fallback, "
-            "not yet ported (ROADMAP.md Queue 1 item 1)")
     if plan is None:
         plan = plan_lane2(r.capacity, s.capacity, out_capacity=out_capacity)
     r_names = [n for n in r.names if n != key]
     tables = build_lane2_tables(r, plan, key)
     out, ok = lane2_probe_emit(tables, s, out_capacity, key=key,
                                r_names=r_names,
-                               r_dtypes=[r.col(n).dtype for n in r_names])
+                               r_dtypes=[r.col(n).dtype for n in r_names],
+                               keep=probe_keep)
     # tpq's lax.cond(ok, ...) is a host branch here (one device sync)
     if bool(ok):
         return out
+    if probe_keep is not None:
+        s = compact(s, probe_keep)
     return union_join(r, s, out_capacity, key=key)

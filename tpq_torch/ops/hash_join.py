@@ -21,6 +21,10 @@ def hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     impl="sorted": the union-sort engine (tpq_torch/ops/union_join.py).
     impl="skew": the heavy/light split for a skewed probe side
     (tpq_torch/ops/skew_join.py).
+
+    probe_keep (bool[s.capacity], optional): a pushed-down probe-side
+    filter, join(r, filter(s, keep)). The lane impl drops the rows in its
+    probe layout; the other impls compact first.
     """
     if impl == "lane":
         from tpq_torch.kernels.lane2 import lane2_hash_join
@@ -30,9 +34,9 @@ def hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     if impl not in ("sorted", "skew"):
         raise ValueError(f"unknown impl {impl!r}")
     if probe_keep is not None:
-        raise NotImplementedError(
-            "probe_keep needs the filter operator's predicate front end and "
-            "pipeline, not yet ported (ROADMAP.md Queue 1 item 1)")
+        from tpq_torch.ops.filter import compact
+
+        s = compact(s, probe_keep)
     if impl == "skew":
         from tpq_torch.ops.skew_join import skew_hash_join
 
