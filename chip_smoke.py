@@ -21,17 +21,22 @@ Phases, one line each; any failure raises and exits non-zero:
                 digit split (JSON name split1) at one pass of the
                 config-1 radix merge's sort and over the whole sort
                 (every pass held), then the sort at digit widths 4 to 8;
+                the u32 key hash at config 1's build keys (bucket ids
+                and h2, both salts), also held to numpy's twin on a
+                sample;
   4. config1  — the 1M x 1M uniform join, hash_join(impl="lane"): one
                 join with every launch count zeroed just before it and
-                read just after (PAD, PACK and the fused walk/emit
-                launched, nothing else), num_rows equal to numpy's count
-                and the rows byte-equal to the C++ oracle; then the bench
+                read just after (PAD, PACK, the fused walk/emit and the
+                hash launched, nothing else; the hash 4 times), num_rows
+                equal to numpy's count and the rows byte-equal to the
+                C++ oracle; then the bench
                 runner: the lane path taken, end-to-end ms, rows/s and
                 the per-phase breakdown;
   5. config3  — the 1M x 1M zipf-probe join, hash_join(impl="skew"), the
-                same way: PAD, PACK, the fused walk/emit and the probe
-                kernel launched, rows byte-equal to the oracle, the split
-                path taken (`join_hash_skew`); its heavy rows against
+                same way: PAD, PACK, the fused walk/emit, the probe
+                kernel and the hash (11 times) launched, rows byte-equal
+                to the oracle, the split path taken (`join_hash_skew`);
+                its heavy rows against
                 the heavy buffer (out_capacity // 2, past which the join
                 falls back); heavy keys and their share of the probe rows;
   6. merge    — merge_join(sort_engine="radix") at config 1, the same
@@ -56,14 +61,16 @@ Phases, one line each; any failure raises and exits non-zero:
                 rows, fact 100,000,000 rows with 2 payloads, filter key <
                 2^19, out capacity 2^27): one pipeline with every launch
                 count zeroed just before it and read just after (PAD,
-                PACK and the fused walk/emit launched, nothing else), the
-                lane pushdown path taken, every group's key, count and
-                sums equal to numpy's; the pipeline once more with every
-                call of those kernels held, as it is made, byte-equal to
-                its plain version; the fused walk/emit's call timed, and
-                the aggregate's PACK call (the largest PACK call) beside
-                the boolean-mask library call; end-to-end ms,
-                fact rows/s, groups, join rows and peak memory;
+                PACK, the fused walk/emit and the hash (4 times)
+                launched, nothing else), the lane pushdown path taken,
+                every group's key, count and sums equal to numpy's; the
+                pipeline once more with every call of those kernels held,
+                as it is made, byte-equal to its plain version; the fused
+                walk/emit's call timed, the hash at its largest call (the
+                201,326,592 padded probe keys), and the aggregate's PACK
+                call (the largest PACK call) beside the boolean-mask
+                library call; end-to-end ms, fact rows/s, groups, join
+                rows and peak memory;
  10. config4_chunked — scale_bench.bench_pipeline at 100M fact rows in
                 chunks of 2^22 on the device streams: every group exact
                 against numpy, every chunk on the lane path; the dense
@@ -78,27 +85,38 @@ Phases, one line each; any failure raises and exits non-zero:
                 hands it (all 16 calls byte-equal to the plain version,
                 the first timed); dist_hash_join_planned(local_impl=
                 "lane") with every launch count zeroed just before and
-                read just after (the histogram twice per shard, PAD, PACK
-                and the fused walk/emit, nothing else), overflow zero,
+                read just after (the histogram twice per shard, PAD,
+                PACK, the fused walk/emit and the hash 80 times, nothing
+                else), overflow zero,
                 num_rows equal to numpy's count, four key-range slices
                 byte-equal to the oracle; the join once more with every
-                call of those four kernels held, as it is made, byte-equal
+                call of those five kernels held, as it is made, byte-equal
                 to its plain version on the same inputs (the sizes past
-                2^31 that no CPU test reaches); PAD, PACK and the fused
-                walk/emit timed at their largest call of that join
-                (`config5_largest` in their records); the multiset checksum
-                equal to the single-card lane join's; end-to-end and
-                planning ms, peak memory.
+                2^31 that no CPU test reaches); PAD, PACK, the fused
+                walk/emit and the hash timed at their largest call of that
+                join (`config5_largest` in their records); the multiset
+                checksum equal to the single-card lane join's; end-to-end
+                and planning ms, peak memory;
+ 14. scaling  — the weak-scaling bench (bench.scaling) at 2^24 rows a
+                shard on 1, 2, 4 and 8 shards of the card: one join at 8
+                shards (134M x 134M) counted (the hash and PACK launched,
+                nothing else), then every size's overflow zero and
+                num_rows equal to a count made without the join, each
+                record naming its one-card local mesh;
+ 15. overlap  — the overlap matrix (bench.overlap_bench) at 8 shards of
+                2^24 rows: dense in 1 and 4 chunks and the ring's hops,
+                each variant's num_rows equal to the dense one's.
 The line before the last is the kernels' JSON record: `launches` is the
-sum over the five paths (config 1, config 3, the radix merge, config 4's
-pipeline, config 5) of the launches in their one counted join or
-pipeline, and `launches_per_join` gives them path by path. The last line is
-{"ok": true, "device": {...}}.
+sum over the six paths (config 1, config 3, the radix merge, config 4's
+pipeline, config 5, the scaling bench's join) of the launches in their
+one counted join or pipeline, and `launches_per_join` gives them path by
+path. The last line is {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 """
 
 import functools
+import inspect
 import json
 import os
 import subprocess
@@ -148,6 +166,7 @@ def with_wrappers_replaced(run, replace):
     """Runs `run()` with each kernel wrapper of the ported paths (and
     lsd_radix_sort_bits, for its whole-sort check), as the modules of
     the paths name it, replaced by replace(name, wrapper)."""
+    from tpq_torch.dist import mesh
     from tpq_torch.kernels import lane2, lane_table, radix_partition, radix_sort
     from tpq_torch.ops import filter as filter_op
     from tpq_torch.ops import skew_join
@@ -156,7 +175,8 @@ def with_wrappers_replaced(run, replace):
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
                (lane_table, "probe_walk"), (radix_sort, "split_digit"),
                (radix_sort, "lsd_radix_sort_bits"),
-               (radix_partition, "radix_histogram")]
+               (radix_partition, "radix_histogram"), (lane_table, "hash_keys"),
+               (mesh, "hash_keys")]
     saved = [getattr(m, n) for m, n in patched]
     for (m, n), fn in zip(patched, saved):
         setattr(m, n, replace(n, fn))
@@ -165,6 +185,12 @@ def with_wrappers_replaced(run, replace):
     finally:
         for (m, n), fn in zip(patched, saved):
             setattr(m, n, fn)
+
+
+def positional(fn, args, kwargs) -> tuple:
+    """A call's arguments as one positional tuple (owner_of passes the
+    hash's salt by keyword)."""
+    return inspect.signature(fn).bind(*args, **kwargs).args
 
 
 def record_kernel_calls(run):
@@ -176,7 +202,8 @@ def record_kernel_calls(run):
         # wraps copies `launches`: while patched, a wrapper's body counts
         # through its module-global name, which may be this recorder
         @functools.wraps(fn)
-        def rec(*args):
+        def rec(*args, **kwargs):
+            args = positional(fn, args, kwargs)
             calls.setdefault(name, []).append(args)
             return fn(*args)
         return rec
@@ -226,28 +253,39 @@ def hist_err(args, got) -> int:
     return max_abs_err([(got, radix_histogram_ref(*args))])
 
 
+def hash_err(args, got) -> int:
+    from tpq_torch.hashing import hash_keys_ref
+
+    return max_abs_err([(got, hash_keys_ref(*args))])
+
+
 ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
-        "radix_histogram": hist_err}
+        "radix_histogram": hist_err, "hash_keys": hash_err}
 
 
-LARGEST = ("pad", "pack", "fused_walk_emit")  # kept at their largest call
+LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys")  # kept at their largest call
 
 
 def call_size(name, args) -> int:
     """What picks a join's largest call: PAD's and PACK's output slots
-    times row width (kernel_ab.size), the walk/emit's padded queries."""
+    times row width (kernel_ab.size), the walk/emit's padded queries, the
+    hash's keys."""
     from tpq_torch.bench.kernel_ab import size
 
+    if name == "hash_keys":
+        return args[0].numel()
     return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
 
 
-def hold_kernel_calls(run):
-    """Runs `run()` with every call of PAD, PACK, the fused walk/emit and
-    the histogram held, as it is made, against the plain version on the
-    same inputs; the walk/emit is also timed on the card alone at every
-    call. Returns ({name: (calls, largest max_abs_err)}, {name in
-    LARGEST: the arguments of its largest call}, [device ms of each
-    walk/emit call])."""
+def hold_kernel_calls(run, keep=LARGEST):
+    """Runs `run()` with every call of PAD, PACK, the fused walk/emit, the
+    histogram and the hash held, as it is made, against the plain version
+    on the same inputs; the walk/emit is also timed on the card alone at every
+    call. The plain version's buffers go back to the card after each
+    check, so that they do not split the memory the run itself needs.
+    Returns ({name: (calls, largest max_abs_err)}, {name in `keep`: the
+    arguments of its largest call}, [device ms of each walk/emit
+    call])."""
     from tpq_torch.bench.runner import device_time
 
     held, largest, times = {}, {}, []
@@ -257,13 +295,15 @@ def hold_kernel_calls(run):
             return fn
 
         @functools.wraps(fn)
-        def hold(*args):
+        def hold(*args, **kwargs):
+            args = positional(fn, args, kwargs)
             got = fn(*args)
             if name == "fused_walk_emit":
                 times.append(device_time(lambda: fn(*args), args[1].device, 3)[0] * 1e3)
             n, err = held.get(name, (0, 0))
             held[name] = (n + 1, max(err, ERRS[name](args, got)))
-            if name in LARGEST and (name not in largest or call_size(
+            torch.cuda.empty_cache()
+            if name in keep and (name not in largest or call_size(
                     name, args) > call_size(name, largest[name])):
                 largest[name] = args
             return got
@@ -271,6 +311,28 @@ def hold_kernel_calls(run):
 
     with_wrappers_replaced(run, holder)
     return held, largest, times
+
+
+# hash_keys launches of one join or pipeline, from the code: the lane
+# build hashes twice (bucket, h2), a partitioned probe layout twice
+# (bucket, lane of the padded keys), an identity layout once. Config 3:
+# the list table's build (2), both memberships (1 each), the heavy mini
+# table (2 + 1) and the light join (4). Config 5, per shard: owner_of
+# twice for the planner's histograms, twice for its keys-only exchange
+# and twice for the join's, then the light lane join (4).
+HASH_LAUNCHES = {"config1": 4, "config3": 11, "merge": 0, "config4": 4,
+                 "dist": 8 * (6 + 4)}
+
+# Launches of one 8-shard join of the dist benches (the sorted local
+# join, which launches no kernel), from the code. Per shard: owner_of
+# for R and S (hash); PACK once for R's dense exchange, once per chunk
+# of S's dense exchange (the ring's hops are not compacted) and once for
+# the output.
+DIST_BENCH_LAUNCHES = {
+    "scaling": {"hash_keys": 8 * 2, "pack": 8 * 3},
+    "overlap_dense_4chunks": {"hash_keys": 8 * 2, "pack": 8 * (1 + 4 + 1)},
+    "overlap_ring_hops": {"hash_keys": 8 * 2, "pack": 8 * 2},
+}
 
 
 def bound(nbytes: int, ops: int = 0):
@@ -394,12 +456,30 @@ def pack_phase(K, args, label, record):
                   nbytes, library=library, record=record)
 
 
+def hash_phase(K, args, label, record):
+    """The hash at one call: byte-equal to its plain chain and, on a
+    sample of 65,536 keys or fewer, to numpy's twin; bound by its 12
+    bytes a key (the key read, the id written)."""
+    from tpq_torch.hashing import hash_keys, hash_keys_ref, np_hash_keys
+
+    keys, bits, salt = args
+    got = hash_keys(*args)
+    n = keys.numel()
+    step = max(1, n // 65536)
+    check(np.array_equal(got[::step].cpu().numpy(),
+                         np_hash_keys(keys[::step].cpu().numpy(), bits, salt)),
+          f"hash_keys ({label}) differs from np_hash_keys on a sample")
+    return K.hold("hash_keys", f"{label}: {n} keys, bits {bits}, salt {salt:#x}",
+                  lambda: hash_keys(*args), lambda: hash_keys_ref(*args), 3,
+                  hash_err(args, got), n * 12, ops=13 * n, record=record)
+
+
 def largest_call_phase(K, largest):
-    """PAD, PACK and the fused walk/emit at their largest call of the
-    planned config-5 join, where the bytes they move, not the host,
-    should set their time."""
+    """PAD, PACK, the fused walk/emit and the hash at their largest call
+    of the planned config-5 join, where the bytes they move, not the
+    host, should set their time."""
     for name, timed in (("pad", pad_phase), ("pack", pack_phase),
-                        ("fused_walk_emit", fused_phase)):
+                        ("fused_walk_emit", fused_phase), ("hash_keys", hash_phase)):
         K.rec[name]["config5_largest"] = timed(K, largest[name], "largest config-5 call",
                                                record=False)
         torch.cuda.empty_cache()
@@ -577,7 +657,7 @@ def split_phase(K, calls):
 def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     from tpq_torch.bench.runner import gen, out_capacity_for
     from tpq_torch.kernels.lane2 import build_lane2_tables, lane2_hash_join, plan_lane2
-    from tpq_torch.kernels.lane_table import probe_lane_tables
+    from tpq_torch.kernels.lane_table import SALT_H2, SALT_LANE, probe_lane_tables
     from tpq_torch.ops import merge_join
     from tpq_torch.ops.skew_join import skew_hash_join
 
@@ -587,9 +667,19 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     calls = record_kernel_calls(lambda: lane2_hash_join(r1, s1, cap1))
     for _ in range(3):  # clocks and the caching allocator settle first
         lane2_hash_join(r1, s1, cap1)
-    check(set(calls) == {"pad", "pack", "fused_walk_emit"},
+    check(set(calls) == {"pad", "pack", "fused_walk_emit", "hash_keys"},
           f"config 1 reached kernels {sorted(calls)}")
     check(len(calls["pad"]) == 3, "expected build, probe and tail-window PAD calls")
+    check(len(calls["hash_keys"]) == HASH_LAUNCHES["config1"],
+          f"{len(calls['hash_keys'])} hash calls at config 1")
+    (h_args, h2_args), salts = calls["hash_keys"][:2], (SALT_LANE, SALT_H2)
+    check((h_args[2], h2_args[2]) == salts, "config 1's build hashed with other salts")
+    # secondary entries: config 1's 12.6 MB of keys and ids stay in L2
+    # between timed calls; config 4's padded keys (config4_phase) give the
+    # hash's main record
+    K.rec["hash_keys"] = {
+        "config1_build": hash_phase(K, h_args, "config-1 build buckets", record=False),
+        "config1_build_h2": hash_phase(K, h2_args, "config-1 build h2", record=False)}
     for label, args in zip(("build", "probe", "tail window"), calls["pad"]):
         pad_phase(K, args, label, record=label == "build")
     (args,) = calls["pack"]
@@ -698,6 +788,7 @@ def true_rows(cfg, r_np, s_np) -> int:
 
 def wrappers():
     """The kernel wrappers of the ported paths, by their JSON names."""
+    from tpq_torch.hashing import hash_keys
     from tpq_torch.kernels.lane2 import fused_walk_emit
     from tpq_torch.kernels.lane_table import probe_walk
     from tpq_torch.kernels.move import pack, pad
@@ -706,7 +797,7 @@ def wrappers():
 
     return {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit,
             "probe_walk": probe_walk, "split1": split_digit,
-            "radix_histogram": radix_histogram}
+            "radix_histogram": radix_histogram, "hash_keys": hash_keys}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -727,6 +818,8 @@ def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
     phase(name, f"one join: launches {launches}")
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
+    check(launches["hash_keys"] == HASH_LAUNCHES[name],
+          f"{launches['hash_keys']} hash launches, expected {HASH_LAUNCHES[name]}")
 
     r_np, s_np = relations_np(cfg)
     n = true_rows(cfg, r_np, s_np)
@@ -749,7 +842,8 @@ def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
 def config1_phase(dev, cfg, hbm_bw):
     from tpq_torch.bench.runner import phase_report
 
-    launches, _ = run_path("config1", dev, cfg, {"pad", "pack", "fused_walk_emit"},
+    launches, _ = run_path("config1", dev, cfg,
+                           {"pad", "pack", "fused_walk_emit", "hash_keys"},
                            "join_hash_lane", hbm_bw)
     phases = phase_report(cfg, device=dev)
     phase("config1", "phases (ms): " + ", ".join(
@@ -775,7 +869,8 @@ def config3_phase(dev, cfg, hbm_bw):
     skew_join._split = recording_split
     try:
         launches, s_np = run_path(
-            "config3", dev, cfg, {"pad", "pack", "fused_walk_emit", "probe_walk"},
+            "config3", dev, cfg,
+            {"pad", "pack", "fused_walk_emit", "probe_walk", "hash_keys"},
             "join_hash_skew", hbm_bw)
     finally:
         skew_join._split = split
@@ -971,9 +1066,11 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     phase("config4", f"one pipeline (dim {cfg.r.rows}, fact {cfg.s.rows} rows of capacity "
                      f"{s.capacity}, out capacity {out_cap}): launches {launches}; peak "
                      f"memory {peak} B")
-    expect = {"pad", "pack", "fused_walk_emit"}
+    expect = {"pad", "pack", "fused_walk_emit", "hash_keys"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
+    check(launches["hash_keys"] == HASH_LAUNCHES["config4"],
+          f"{launches['hash_keys']} hash launches, expected {HASH_LAUNCHES['config4']}")
     got = out.to_numpy()
     check(len(got["key"]) == len(truth["key"]) and groups_equal(got, truth),
           f"{len(got['key'])} groups differ from numpy's {len(truth['key'])}")
@@ -998,6 +1095,13 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
           + ", ".join(f"{t:.4f}" for t in walk_ms) + " ms")
     del r, s, pipe
     largest.pop("pad")
+    torch.cuda.empty_cache()
+    keys, bits, salt = largest.pop("hash_keys")
+    check(keys.numel() == 201_326_592, f"the largest hash call took {keys.numel()} keys, "
+                                       f"not the probe layout's padded keys")
+    K.rec["hash_keys"].update(hash_phase(
+        K, (keys, bits, salt), "config-4 padded probe keys (largest call)", record=False))
+    del keys
     torch.cuda.empty_cache()
     K.rec["fused_walk_emit"]["config4"] = fused_phase(
         K, largest.pop("fused_walk_emit"), "config-4 pipeline", record=False)
@@ -1120,9 +1224,11 @@ def config5_phase(dev, K, cfg):
     launches = {k: w.launches for k, w in ws.items()}
     phase("config5", f"one planned join (ex_cap {ex_cap}, out_cap {out_cap} per "
                      f"shard): launches {launches}; peak memory {peak} B")
-    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit"}
+    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit", "hash_keys"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
+    check(launches["hash_keys"] == HASH_LAUNCHES["dist"],
+          f"{launches['hash_keys']} hash launches, expected {HASH_LAUNCHES['dist']}")
     check(launches["radix_histogram"] == 2 * mesh.size,
           f"{launches['radix_histogram']} histogram launches, expected {2 * mesh.size}")
     check(int(ovf.sum()) == 0, f"overflow {ovf.tolist()}")
@@ -1214,6 +1320,127 @@ def config5_phase(dev, K, cfg):
     return launches
 
 
+def counted_held_join(dev, label, mesh, join, want_rows, expect):
+    """Drives one distributed join with every launch count zeroed just
+    before and read just after: exactly the wrappers of `expect` ({name:
+    launches, from the code}) launched, as often as it says, overflow 0
+    and `want_rows` rows. Then drives it once more with every kernel call
+    held, as it is made, byte-equal to its plain version. Returns the
+    counted run's launches."""
+    from tpq_torch.bench.scaling import joined_rows
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, ovf = join()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: w.launches for k, w in ws.items()}
+    phase(label, f"launches {launches}; peak memory {peak} B")
+    check(all(v == expect.get(k, 0) for k, v in launches.items()),
+          f"expected launches {expect}: {launches}")
+    got = joined_rows(out, mesh)
+    check(int(ovf.sum()) == 0 and got == want_rows,
+          f"overflow {ovf.tolist()}, {got} rows of {want_rows}")
+    del out, ovf
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    held, _, _ = hold_kernel_calls(join, keep=())
+    check(set(held) == set(expect), f"held {sorted(held)}")
+    for name, (calls, err) in held.items():
+        check(calls == launches[name], f"{name}: {calls} calls held, {launches[name]} "
+                                       f"launched")
+        check(err == 0, f"{name} differs from its plain version at {label}'s arguments "
+                        f"(max_abs_err {err})")
+    torch.cuda.empty_cache()
+    phase(label, f"overflow 0; {got} rows == the count without the join; every kernel "
+                 "call byte-equal to its plain version: "
+                 + ", ".join(f"{k} {c}" for k, (c, _) in held.items())
+                 + f" ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def scaling_phase(dev):
+    """The weak-scaling bench at 2^24 rows a shard on 1, 2, 4 and 8
+    shards of the card: first one join at 8 shards (134M x 134M, the
+    bench's arguments) counted and held (counted_held_join), then the
+    bench, each size's overflow 0 and num_rows equal to a count made
+    without the join. Returns the counted join's launches."""
+    from tpq_torch.bench.scaling import place_uniform, run_weak_scaling, true_join_rows
+    from tpq_torch.dist import dist_hash_join, make_mesh
+
+    per, n = 1 << 24, 8
+    mesh = make_mesh(n, dev)
+    R = place_uniform(per * n, per * n, 1, 77, mesh)
+    S = place_uniform(per * n, per * n, 1, 78, mesh)
+    launches = counted_held_join(
+        dev, "scaling", mesh,
+        lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per),
+        true_join_rows(per * n, per * n, 77, 78, dev), DIST_BENCH_LAUNCHES["scaling"])
+    del R, S
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rows = run_weak_scaling(rows_per_chip=per, mesh_sizes=(1, 2, 4, 8), device=dev)
+    check([r["n_chips"] for r in rows] == [1, 2, 4, 8], "a mesh size did not run")
+    name = torch.cuda.get_device_name(dev)
+    for r in rows:
+        check(r["mesh"] == "local" and r["cards"] == 1 and r["device"] == name,
+              f"record {r} does not name its one-card local mesh")
+        phase("scaling", f"{r['n_chips']} shards on one card, {r['rows_total']} x "
+                         f"{r['rows_total']} rows: {r['num_rows']} rows == the count "
+                         f"without the join; {r['elapsed_ms']:.4f} ms, "
+                         f"{r['rows_per_sec_per_chip']:.6e} rows/s on the card, efficiency "
+                         f"{r['efficiency']:.4f}")
+    phase("scaling", f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def overlap_phase(dev):
+    """The overlap matrix at 8 shards of 2^24 rows, out capacity 2^26 a
+    shard: first one dense_4chunks and one ring_hops join (the matrix's
+    relations) each counted and held (counted_held_join), then the
+    matrix, every variant's num_rows equal to the dense one's; on one
+    card chunks and hops run in order, so it shows what they cost, not
+    overlap. Returns the counted joins' launches by variant."""
+    from tpq_torch.bench.overlap_bench import VARIANTS, run_overlap_matrix
+    from tpq_torch.bench.scaling import place_uniform, true_join_rows
+    from tpq_torch.dist import dist_hash_join, make_mesh
+
+    per, n = 1 << 24, 8
+    mesh = make_mesh(n, dev)
+    R = place_uniform(per * n, per * n, 1, 71, mesh)
+    S = place_uniform(per * n, per * n, 1, 72, mesh)
+    want = true_join_rows(per * n, per * n, 71, 72, dev)
+    launches = {}
+    for variant, kw in VARIANTS[1:]:
+        path = f"overlap_{variant}"
+        launches[path] = counted_held_join(
+            dev, path, mesh,
+            lambda kw=kw: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, **kw),
+            want, DIST_BENCH_LAUNCHES[path])
+    del R, S
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rows = run_overlap_matrix(mesh, rows_per_shard=per, out_capacity_per_shard=4 * per)
+    check([r["variant"] for r in rows] == ["dense_1chunk", "dense_4chunks", "ring_hops"],
+          "a variant did not run")
+    for r in rows:
+        check(r["mesh"] == "local" and r["num_rows"] == want, f"record {r}")
+        phase("overlap", f"{r['variant']}: {r['num_rows']} rows of {r['rows_total']} in "
+                         f"(equal in every variant and to the count without the join), "
+                         f"best of 3 {r['elapsed_ms']} ms, {r['vs_dense_1chunk']} of "
+                         f"dense_1chunk")
+    phase("overlap", f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card visible; this check runs only on a card")
@@ -1252,6 +1479,8 @@ def main():
     fallback_phase(dev)
     dryrun_phase(dev)
     per_join["dist"] = config5_phase(dev, K, PRESETS["dist_125m_8shard"])
+    per_join["scaling"] = scaling_phase(dev)
+    per_join.update(overlap_phase(dev))
     records = K.rec
 
     meta = {
@@ -1262,6 +1491,7 @@ def main():
         "split1": ("tpq_torch/csrc/radix_sort.cu", "tpq/kernels/radix_sort.py:140"),
         "radix_histogram": ("tpq_torch/csrc/radix_partition.cu",
                             "tpq/kernels/radix_partition.py:48"),
+        "hash_keys": ("tpq_torch/csrc/hash.cu", "tpq/hashing.py:63"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

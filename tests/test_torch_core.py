@@ -15,6 +15,8 @@ from tpq import hashing as jhashing
 from tpq.ops.union_join import col_planes as jcol_planes
 from tpq_torch import Table, colio, datagen, hashing
 from tpq_torch.columnar import canonicalize, next_pow2, tables_equal
+from tpq_torch.dist.mesh import OWNER_SALT
+from tpq_torch.kernels import lane_table
 from tpq_torch.ops.union_join import col_planes, planes_col
 
 from conftest import REPO
@@ -42,6 +44,31 @@ def test_hash_keys_matches_tpq(bits):
         np.testing.assert_array_equal(got, hashing.np_hash_keys(keys, bits, salt))
     if bits == 32:
         assert (got < 0).any()  # all 32 bits kept, as tpq's hash_keys
+
+
+# (bits, salt) of hash_keys' call sites: the lane build and probe layout
+# at pbits + 7 (pbits 0, 5, 9 and 14: the skew join's one-partition
+# tables, config 1 and config 4, config 5's shards), h2, owner_of
+@pytest.mark.parametrize("bits,salt", [
+    (7, lane_table.SALT_LANE), (12, lane_table.SALT_LANE), (16, lane_table.SALT_LANE),
+    (21, lane_table.SALT_LANE), (32, lane_table.SALT_H2), (32, OWNER_SALT)])
+def test_hash_keys_call_sites_match_plain_and_numpy(bits, salt):
+    """On the CPU hash_keys is its plain version; int32 keys are widened
+    as tpq widens them."""
+    keys = _keys()
+    got = hashing.hash_keys(torch.from_numpy(keys), bits, salt)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, hashing.hash_keys_ref(torch.from_numpy(keys), bits, salt))
+    np.testing.assert_array_equal(got.numpy(), hashing.np_hash_keys(keys, bits, salt))
+    k32 = keys.astype(np.int32)
+    np.testing.assert_array_equal(hashing.hash_keys(torch.from_numpy(k32), bits, salt).numpy(),
+                                  hashing.np_hash_keys(k32, bits, salt))
+
+
+@pytest.mark.parametrize("bits", [0, 33])
+def test_hash_keys_rejects_bits_out_of_range(bits):
+    with pytest.raises(ValueError, match="bits must be in 1..32"):
+        hashing.hash_keys(torch.zeros(4, dtype=torch.int64), bits)
 
 
 def test_hash_u64_and_split_match_tpq():

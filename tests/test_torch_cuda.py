@@ -16,10 +16,12 @@ import torch_skew_cases as skew_cases
 from tpq_torch import Table, datagen
 from tpq_torch.columnar import canonicalize, tables_equal
 from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh, run_dryrun
+from tpq_torch.dist.mesh import OWNER_SALT, owner_of
+from tpq_torch.hashing import hash_keys, hash_keys_ref, np_hash_keys
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, plan_lane2)
 from tpq_torch.kernels import lane_table
-from tpq_torch.kernels.lane_table import (LanePlan, _probe_layout,
+from tpq_torch.kernels.lane_table import (SALT_H2, SALT_LANE, LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
                                           probe_walk_ref, walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
@@ -579,3 +581,59 @@ def test_gen_relation_device_on_card_equals_numpy(dev):
     for k, v in t.columns.items():
         assert v.device.type == "cuda"
         assert np.array_equal(v[:rows].cpu().numpy(), want[k][off:]), k
+
+
+@pytest.fixture(scope="module")
+def hash_input():
+    """2^24 + 4 keys over the whole int64 range with INT64_MIN, INT64_MAX,
+    -1 and 0 mixed in, on the card from a 16-byte boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(8)
+    k = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, (1 << 24) + 4,
+                     dtype=np.int64, endpoint=True)
+    edge = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 0], np.int64)
+    k[:8] = np.tile(edge, 2)
+    k[rng.integers(0, k.size, 4096)] = np.tile(edge, 1024)
+    t = torch.from_numpy(k).cuda()
+    assert t.data_ptr() % 16 == 0
+    return t
+
+
+@pytest.mark.parametrize("salt", [0, SALT_LANE, SALT_H2, OWNER_SALT])
+@pytest.mark.parametrize("bits", [1, 7, 16, 19, 31, 32])
+def test_hash_kernel_matches_plain(hash_input, bits, salt):
+    """n 0, 1, 3, 5, 100,003 and 2^24 + 3, from a 16-byte boundary and 8
+    bytes past it (the head and the tail one key at a time); one launch
+    each, none at n 0."""
+    for offset in (0, 1):
+        for n in (0, 1, 3, 5, 100_003, (1 << 24) + 3):
+            keys = hash_input[offset:offset + n]
+            assert n == 0 or keys.data_ptr() % 16 == 8 * offset  # empty: no pointer
+            before = hash_keys.launches
+            got = hash_keys(keys, bits, salt)
+            assert hash_keys.launches == before + (n > 0)
+            _eq(got, hash_keys_ref(keys, bits, salt))
+            if n and n < 200_000:
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), np_hash_keys(keys.cpu().numpy(), bits, salt))
+            if bits == 32 and n > 1000:
+                assert (got < 0).any()
+
+
+def test_hash_kernel_takes_int32_keys_and_shapes(hash_input):
+    """int32 keys widen as tpq widens them; a 2-D input keeps its shape."""
+    k32 = hash_input[:100_000].to(torch.int32)
+    _eq(hash_keys(k32, 12, SALT_LANE), hash_keys_ref(k32, 12, SALT_LANE))
+    k2 = hash_input[:4096].view(64, 64)
+    _eq(hash_keys(k2, 20, OWNER_SALT), hash_keys_ref(k2, 20, OWNER_SALT))
+    with pytest.raises(ValueError):
+        hash_keys(hash_input[:10], 33)
+
+
+@pytest.mark.parametrize("nchips", [8, 6])
+def test_owner_of_matches_numpy(hash_input, nchips):
+    keys = hash_input[1:1_000_001]
+    want = (np_hash_keys(keys.cpu().numpy(), 32, OWNER_SALT).view(np.uint32)
+            % np.uint32(nchips)).astype(np.int32)
+    np.testing.assert_array_equal(owner_of(keys, nchips).cpu().numpy(), want)

@@ -17,8 +17,9 @@ preset with a mesh shape runs dist_hash_join_planned(local_impl=
 "lane") on a one-process mesh of that many shards on the card)
 prints one JSON object: end-to-end ms per join, device busy ms per join,
 the device's idle share of the join (1 - busy / end to end), device
-activities per join and the TOP largest device items by name, each with
-the card's name and power limit.
+activities per join, the TOP largest device items by name and every
+kernel of tpq_torch/csrc that ran (`port_kernels`), each with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ from tpq_torch.bench.runner import (add_join_args, card_info, config_from_args,
 
 JOINS = 10
 TOP = 12
+# the __global__ kernels of tpq_torch/csrc (the histogram's is
+# hist_shared_bins), as the trace names them
+PORT_KERNELS = ("pad_kernel", "pack_kernel", "walk_emit_kernel", "probe_walk_kernel",
+                "digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel",
+                "hist_shared_bins", "hash_keys_kernel")
 
 
 def device_activities(prof) -> list[tuple[float, float, str]]:
@@ -70,14 +76,22 @@ def profile_join(fn, device) -> dict:
         rec[1] += e - s
     busy_ms = busy_us(acts) / 1e3 / JOINS
     e2e_ms = e2e_s * 1e3
-    items = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    items = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    port = {}
+    for name, (c, t) in items:
+        k = next((k for k in PORT_KERNELS if f"::{k}(" in name), None)
+        if k is not None:
+            rec = port.setdefault(k, {"launches_per_join": 0.0, "ms_per_join": 0.0})
+            rec["launches_per_join"] += c / JOINS
+            rec["ms_per_join"] += t / 1e3 / JOINS
     return {
         "end_to_end_ms": e2e_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / e2e_ms,
         "device_activities_per_join": len(acts) / JOINS,
         "top": [{"name": n[:120], "launches_per_join": c / JOINS,
-                 "ms_per_join": t / 1e3 / JOINS} for n, (c, t) in items],
+                 "ms_per_join": t / 1e3 / JOINS} for n, (c, t) in items[:TOP]],
+        "port_kernels": port,
     }
 
 

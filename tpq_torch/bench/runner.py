@@ -12,10 +12,19 @@ CPU, run_config runs the operator once and reports no time.
 
 CLI:  python -m tpq_torch.bench.runner --config=single_chip_1m [--phases]
       [--algo hash|merge] [--impl lane|sorted|skew] [--sort-engine lax|radix]
+      [--iters N] [--trace-dir DIR] [--log-jsonl FILE] [--json-out FILE]
+      [--check BASELINE_JSON [--tolerance 0.25]] [--device cuda|cpu]
       python -m tpq_torch.bench.runner --config=pipeline_100m
+      python -m tpq_torch.bench.runner --scaling 1,2,4,8
+      [--rows-per-chip N] [--exchange dense|ragged|ring] [--n-chunks N]
 prints the bench.py one-line JSON as its last line: probe rows/s under
-the metric hash_join_probe_rows_per_sec_1chip_torch, or fact rows/s of
-the pipeline under pipeline_fact_rows_per_sec_1chip_torch.
+the metric hash_join_probe_rows_per_sec_1chip_torch, fact rows/s of the
+pipeline under pipeline_fact_rows_per_sec_1chip_torch, or the weak
+scaling's rows/s per shard at its largest size under
+weak_scaling_rows_per_sec_per_chip_torch (with its records). Reports
+and markdown tables go to stderr. `--check` (tpq's regression mode)
+exits 1 when an op's rows/s fell below (1 - tolerance) times the
+baseline report's. `--device cpu` runs without times (values null).
 """
 
 from __future__ import annotations
@@ -30,14 +39,18 @@ import torch
 
 from tpq_torch import datagen
 from tpq_torch.bench import roofline
+from tpq_torch.bench.report import emit_json, markdown_table
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.config import PRESETS, BenchConfig, RelationSpec
+from tpq_torch.log import GLOBAL_LOG
 from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.ops.filter import compact, keep_mask
 from tpq_torch.query import jit_pipeline
+from tpq_torch.trace import annotate, trace_if
 
 METRIC = "hash_join_probe_rows_per_sec_1chip_torch"
 PIPELINE_METRIC = "pipeline_fact_rows_per_sec_1chip_torch"
+SCALING_METRIC = "weak_scaling_rows_per_sec_per_chip_torch"
 
 
 def gen_np(spec: RelationSpec) -> dict:
@@ -182,9 +195,11 @@ def config_from_args(args) -> BenchConfig:
 
 
 def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
-               device="cuda") -> dict:
+               device="cuda", trace_dir: str | None = None) -> dict:
     """Runs a join or pipeline preset on `device`. The report's "output"
-    is the Table of the last timed call."""
+    is the Table of the last timed call. `trace_dir` traces the timed
+    calls (trace.trace_if), under tpq's span name ("pipeline" or
+    "join_<algo>"). Each op row also goes to log.GLOBAL_LOG."""
     dev = torch.device(device)
     r, s = gen(cfg.r, dev), gen(cfg.s, dev)
     out_cap = out_capacity_for(cfg)
@@ -212,22 +227,75 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
         if not bool(ok):
             op += "_FELL_BACK_TO_SORTED"
 
+    span = "pipeline" if cfg.pipeline else f"join_{algo}"
     if dev.type == "cuda":
         if hbm_bw is None:
             hbm_bw = roofline.measure_hbm_bw(device=dev)
-        sec, out = cuda_time(fn, dev, cfg.iters, cfg.warmup)
+        with trace_if(trace_dir), annotate(span):
+            sec, out = cuda_time(fn, dev, cfg.iters, cfg.warmup)
         model = bytes_model(r.capacity, len(r.columns), s.capacity,
                             len(s.columns), out_cap)
         row = roofline.RooflineResult(op, sec, sum(b.total for b in model.values()),
                                       hbm_bw, cfg.s.rows).row()
         name = torch.cuda.get_device_name(dev)
     else:
-        out = fn()
-        row = {"op": op, "elapsed_ms": None, "rows": cfg.s.rows}  # not measured
+        with trace_if(trace_dir), annotate(span):
+            out = fn()
+        # not measured
+        row = {"op": op, "elapsed_ms": None, "rows": cfg.s.rows, "rows_per_sec": None}
         name = str(dev)
+    GLOBAL_LOG.emit(config=cfg.name, **row)
     return {"config": cfg.name, "device": name, "hbm_bw_gbps": hbm_bw,
             "out_capacity": out_cap, "out_rows": int(out.num_rows),
             "ops": [row], "output": out}
+
+
+def check_regression(report: dict, baseline: dict, tolerance: float):
+    """tpq's regression check: each op of `report` that the baseline
+    report also has must reach (1 - tolerance) of its rows/s. Returns
+    (one line per op compared, the ops that fell below)."""
+    base_ops = {op["op"]: op for op in baseline.get("ops", [])}
+    lines, failed = [], []
+    for op in report["ops"]:
+        ref = base_ops.get(op["op"])
+        if ref is None:
+            continue
+        if op.get("rows_per_sec") is None:
+            raise ValueError(f"check {op['op']}: no rows/s measured (a run on the CPU)")
+        floor = ref["rows_per_sec"] * (1.0 - tolerance)
+        status = "OK" if op["rows_per_sec"] >= floor else "REGRESSED"
+        lines.append(f"check {op['op']}: {op['rows_per_sec']:.3e} rows/s vs baseline "
+                     f"{ref['rows_per_sec']:.3e} (floor {floor:.3e}) {status}")
+        if status != "OK":
+            failed.append(op["op"])
+    return lines, failed
+
+
+def scaling_main(args, dev: torch.device) -> dict:
+    """--scaling: run_weak_scaling at the sizes asked (with a process
+    group from the TPQ_* environment, at the group's own size only)."""
+    from tpq_torch.bench.scaling import run_weak_scaling
+    from tpq_torch.dist import multihost
+
+    grouped = multihost.init(device=dev)
+    try:
+        rows = run_weak_scaling(rows_per_chip=args.rows_per_chip,
+                                mesh_sizes=tuple(int(x) for x in args.scaling.split(",")),
+                                exchange_impl=args.exchange, n_chunks=args.n_chunks,
+                                device=dev, process_group=grouped)
+    finally:
+        if grouped:
+            torch.distributed.destroy_process_group()
+    print(markdown_table(rows, ["n_chips", "rows_total", "elapsed_ms",
+                                "rows_per_sec_per_chip", "efficiency", "mesh", "cards",
+                                "device"]), file=sys.stderr)
+    report = {"scaling": rows, "card": card_info() if dev.type == "cuda" else None}
+    if args.json_out:
+        emit_json(args.json_out, report)
+    print(json.dumps({"metric": SCALING_METRIC,
+                      "value": rows[-1]["rows_per_sec_per_chip"] if rows else None,
+                      "unit": "rows/s", "scaling": rows}))
+    return report
 
 
 def main(argv=None):
@@ -239,33 +307,70 @@ def main(argv=None):
     p.add_argument("--phases", action="store_true",
                    help="also report the per-phase ms of the lane join")
     p.add_argument("--json-out", default=None)
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the timed calls here")
+    p.add_argument("--log-jsonl", default=None,
+                   help="append each op record to this .jsonl file")
+    p.add_argument("--scaling", default=None, metavar="N1,N2,...",
+                   help="weak-scaling mode: the distributed join at these mesh sizes "
+                        "(rows per shard fixed); other config flags are ignored")
+    p.add_argument("--rows-per-chip", type=int, default=1 << 16)
+    p.add_argument("--exchange", default="dense", choices=["dense", "ragged", "ring"])
+    p.add_argument("--n-chunks", type=int, default=1)
+    p.add_argument("--check", default=None, metavar="BASELINE_JSON",
+                   help="regression mode: compare rows/s per op against a stored "
+                        "report; exit 1 on a fall beyond --tolerance")
+    p.add_argument("--tolerance", type=float, default=0.25,
+                   help="allowed fractional slowdown in --check mode")
+    p.add_argument("--device", default="cuda",
+                   help="cpu runs without times (the metric's value is null)")
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         sys.exit("tpq_torch.bench.runner measures on a CUDA card; none is visible")
+    if args.phases and dev.type != "cuda":
+        p.error("--phases times the lane join's phases on a card")
+    if args.log_jsonl:
+        GLOBAL_LOG.path = args.log_jsonl
+    if args.scaling:
+        return scaling_main(args, dev)
 
     cfg = config_from_args(args)
     if args.iters:
         cfg = replace(cfg, iters=args.iters)
-    report = run_config(cfg)
+    report = run_config(cfg, device=dev, trace_dir=args.trace_dir)
     report.pop("output")
-    report["card"] = card_info()
+    report["card"] = card_info() if dev.type == "cuda" else None
     if args.phases:
-        report["phases"] = phase_report(cfg)
+        report["phases"] = phase_report(cfg, device=dev)
     print(json.dumps(report, indent=2), file=sys.stderr)
+    print(markdown_table(report["ops"], ["op", "elapsed_ms", "sol_ms", "roofline_pct",
+                                         "rows_per_sec"]), file=sys.stderr)
     if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(report, f, indent=2)
+        emit_json(args.json_out, report)
 
     op = report["ops"][0]
-    # vs_baseline as bench.py defines it: against 80% of the byte-model
-    # speed of light at the measured bandwidth
-    sol_rows_per_sec = op["rows"] / (op["sol_ms"] / 1e3)
+    value = vs_baseline = None
+    if op["rows_per_sec"] is not None:
+        # vs_baseline as bench.py defines it: against 80% of the byte-model
+        # speed of light at the measured bandwidth
+        sol_rows_per_sec = op["rows"] / (op["sol_ms"] / 1e3)
+        value = round(op["rows_per_sec"])
+        vs_baseline = round(op["rows_per_sec"] / (0.8 * sol_rows_per_sec), 4)
     print(json.dumps({
         "metric": PIPELINE_METRIC if cfg.pipeline else METRIC,
-        "value": round(op["rows_per_sec"]),
+        "value": value,
         "unit": "rows/s",
-        "vs_baseline": round(op["rows_per_sec"] / (0.8 * sol_rows_per_sec), 4),
+        "vs_baseline": vs_baseline,
     }))
+    if args.check:
+        with open(args.check) as f:
+            lines, failed = check_regression(report, json.load(f), args.tolerance)
+        for line in lines:
+            print(line, file=sys.stderr)
+        if failed:
+            print(f"perf regression in: {', '.join(failed)}", file=sys.stderr)
+            sys.exit(1)
     return report
 
 

@@ -1,7 +1,11 @@
 """Multiplicative hashing (port of tpq/hashing.py), bit-identical to it.
 
-The 32-bit mixer works on u32 values held in int64 tensors: torch on
-the CPU implements neither `>>`, `+` nor `<` on uint32, so every
+`hash_keys`, the engine's bucket function, runs
+tpq_torch/csrc/hash.cu (one launch, native uint32 arithmetic) on CUDA
+tensors and `hash_keys_ref`, its plain torch version, on CPU tensors.
+
+The plain 32-bit mixer works on u32 values held in int64 tensors: torch
+on the CPU implements neither `>>`, `+` nor `<` on uint32, so every
 multiply is taken in int64 (which wraps, keeping the low 32 bits
 exact) and masked back to 32 bits.
 """
@@ -10,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpq_torch.kernels import _build
 
 # Knuth's multiplier: 2^64 / phi, odd.
 PHI64 = 0x9E3779B97F4A7C15
@@ -60,14 +66,44 @@ def split_i64(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return k & M32, (k >> 32) & M32
 
 
-def hash_keys(keys: torch.Tensor, bits: int, salt: int = 0) -> torch.Tensor:
-    """Hash i64 keys -> int32 bucket ids in [0, 2^bits). At bits=32 the
-    result keeps all 32 bits, so half of it is negative, as in tpq."""
+def hash_keys_ref(keys: torch.Tensor, bits: int, salt: int = 0) -> torch.Tensor:
+    """Plain torch hash_keys: defines the contract the kernel is held to."""
     lo, hi = split_i64(keys)
     h = hash32_pair(lo, hi, salt)
     if bits < 32:
         return (h >> (32 - bits)).to(torch.int32)
     return _to_i32(h)
+
+
+def hash_keys(keys: torch.Tensor, bits: int, salt: int = 0) -> torch.Tensor:
+    """Hash i64 keys -> int32 bucket ids in [0, 2^bits), 1 <= bits <= 32.
+    At bits=32 the result keeps all 32 bits, so half of it is negative,
+    as in tpq. Launches counted in `.launches`."""
+    if not 1 <= bits <= 32:
+        raise ValueError(f"hash_keys: bits must be in 1..32, got {bits}")
+    if keys.device.type == "cpu":
+        return hash_keys_ref(keys, bits, salt)
+    if keys.device.type != "cuda":
+        raise RuntimeError(f"hash_keys: no kernel for device {keys.device}")
+    keys = keys.to(torch.int64).contiguous()
+    n = keys.numel()
+    if n == 0:
+        return torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    # `out` takes the keys' alignment, so that the kernel's 16-byte loads
+    # and stores start at one index: where the keys start 8 bytes past a
+    # 16-byte boundary, out starts 12 bytes past one (3 ints into a
+    # buffer the allocator aligns)
+    skew = 3 if keys.data_ptr() % 16 else 0
+    out = torch.empty(n + skew, dtype=torch.int32, device=keys.device)[skew:]
+    with _build.on_device(keys):
+        code = _build.lib().tpq_hash_keys(keys.data_ptr(), n, bits, salt & M32,
+                                          out.data_ptr(), _build.stream_of(keys))
+    _build.check(code, "hash_keys")
+    hash_keys.launches += 1
+    return out.view(keys.shape)
+
+
+hash_keys.launches = 0
 
 
 def np_hash_keys(keys: np.ndarray, bits: int, salt: int = 0) -> np.ndarray:

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "tpq_probe_walk_slots": [I32],
     "tpq_split_digit": [P, P, I32, P, P, P, I32, I32, I64, P, I64, P],
     "tpq_radix_histogram": [P, I64, I32, P, P, I64, P],
+    "tpq_hash_keys": [P, I64, I32, U32, P, P],
     "tpq_copy": [P, P, I64, P],
 }
 
