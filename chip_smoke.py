@@ -47,6 +47,19 @@ Phases, one line each; any failure raises and exits non-zero:
   7. fallback — an h2-colliding key pair clears the lane join's `ok`, and
                 all-equal keys the skew join's; each equals the sorted
                 join;
+  7b. jit     — configs 1 and 3, the radix merge and smoke_pipeline as the
+                bench runner jits them (tpq_torch/jit.py: one CUDA graph
+                per signature, replayed in one launch): each body once
+                with the capture flag set under
+                torch.cuda.set_sync_debug_mode("error") (no host read);
+                the first jitted call (capture and replay) and a replay on
+                a second seed each equal to the C++ oracle, one graph, no
+                rerun; smoke_pipeline also at a second filter value; a
+                profiled replay launching the same port kernels, by name
+                and count, as a profiled eager call of the same body;
+                end-to-end ms eager and jitted in turns (eager, jitted,
+                jitted, eager); the h2-colliding pair jitted: one rerun,
+                equal to the oracle;
   8. dryrun   — tpq_torch.dist.dryrun_multichip(8) on the card: the
                 chunked+skew, ring+skew and dense+lane+skew variants, each
                 62,545 rows byte-equal to the C++ oracle; then the
@@ -801,10 +814,11 @@ def wrappers():
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
-    """One preset's join through its entry point, with every launch count
-    zeroed just before it and read just after: the kernels in `expect`
-    must have launched and no other. Its rows against numpy's count and
-    the C++ oracle; then the bench runner's timed run and op label."""
+    """One preset's join through its entry point, eager (a graph replay
+    runs no Python wrapper to count), with every launch count zeroed just
+    before it and read just after: the kernels in `expect` must have
+    launched and no other. Its rows against numpy's count and the C++
+    oracle; then the bench runner's timed (jitted) run and op label."""
     from tpq_torch.bench.runner import gen, join_fn, out_capacity_for, run_config
     from tpq_torch.columnar import canonicalize, tables_equal
 
@@ -813,7 +827,7 @@ def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
-    out = join()
+    out = join.eager()
     launches = {k: w.launches for k, w in ws.items()}
     phase(name, f"one join: launches {launches}")
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
@@ -832,7 +846,8 @@ def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
     report = run_config(cfg, hbm_bw=hbm_bw, device=dev)
     op = report["ops"][0]
     check(op["op"] == want_op, f"{want_op} not taken: {op['op']}")
-    phase(name, f"{op['op']}: end_to_end {op['elapsed_ms']:.4f} ms, "
+    check(op["reruns"] == 0, f"{name}: a jitted call reran eagerly")
+    phase(name, f"{op['op']}: end_to_end {op['elapsed_ms']:.4f} ms (jitted), "
                 f"{op['rows_per_sec']:.6e} probe rows/s, measured HBM "
                 f"{report['hbm_bw_gbps']:.1f} GB/s, roofline {op['roofline_pct']:.2f}% "
                 f"(byte model {op['model_bytes']} B)")
@@ -945,6 +960,121 @@ def fallback_phase(dev):
                       "(65536 rows)")
 
 
+def port_kernel_launches(fn, dev) -> dict:
+    """{kernel of tpq_torch/csrc: launches} in a profiler trace of one
+    call of fn, by the names bench.profile reads."""
+    from tpq_torch.bench.profile import PORT_KERNELS, device_activities
+
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    counts = {}
+    for _, _, name in device_activities(prof):
+        k = next((k for k in PORT_KERNELS if f"::{k}(" in name), None)
+        if k is not None:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def jit_path(label, dev, call, second, want, want2):
+    """One jitted path (a join_fn call): its body once under the capture
+    flag with every sync raising; the first jitted call (capture, replay)
+    and `second()` (a replay on other inputs) against `want` and `want2`,
+    one graph and no rerun; the kernels of a profiled replay against a
+    profiled eager call's; end-to-end ms eager and jitted in turns."""
+    from tpq_torch.bench.runner import cuda_time
+    from tpq_torch.columnar import canonicalize, tables_equal
+    from tpq_torch.jit import deferred
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with deferred() as preds:
+            call.eager()
+        torch.cuda.synchronize(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    check(len(preds) == 1, f"{label}: {len(preds)} conds in the body")
+    check(tables_equal(canonicalize(call()), want), f"{label}: jitted call != oracle")
+    check(tables_equal(canonicalize(second()), want2),
+          f"{label}: replay on the second inputs != oracle")
+    jitted = call.jitted
+    check(len(jitted._graphs) == 1 and jitted.reruns == 0,
+          f"{label}: {len(jitted._graphs)} graphs, {jitted.reruns} reruns")
+    eager_k = port_kernel_launches(call.eager, dev)
+    replay_k = port_kernel_launches(call, dev)
+    check(eager_k and eager_k == replay_k,
+          f"{label}: replay kernels {replay_k} != eager {eager_k}")
+    e1, j1, j2, e2 = (cuda_time(f, dev, 5)[0] * 1e3
+                      for f in (call.eager, call, call, call.eager))
+    check(jitted.reruns == 0, f"{label}: a timed call reran")
+    phase("jit", f"{label}: body with no host read (sync debug mode error), 1 cond; "
+                 f"jitted calls == oracle on two inputs, 1 graph, 0 reruns; profiled "
+                 f"replay kernels == eager {replay_k}; end_to_end eager "
+                 f"{(e1 + e2) / 2:.4f} ms ({e1:.4f}, {e2:.4f}), jitted "
+                 f"{(j1 + j2) / 2:.4f} ms ({j1:.4f}, {j2:.4f}), 5 calls each, in turns")
+    jitted.clear()
+    return {"eager_ms": [e1, e2], "jitted_ms": [j1, j2], "port_kernels": replay_k}
+
+
+def jit_phase(dev, cfg1, cfg3, smoke_cfg):
+    """Configs 1 and 3, the radix merge and smoke_pipeline jitted as the
+    runner jits them (jit_path each), and a jitted fallback."""
+    from dataclasses import replace
+
+    from tpq_torch import Table
+    from tpq_torch.bench.runner import gen, join_fn, out_capacity_for
+    from tpq_torch.columnar import canonicalize, tables_equal
+    from tpq_torch.jit import jit
+    from tpq_torch.ops import hash_join
+
+    merge = replace(cfg1, join=replace(cfg1.join, algo="merge", sort_engine="radix"))
+    out = {}
+    for label, cfg, algo in (("config1", cfg1, "hash"), ("config3", cfg3, "hash"),
+                             ("merge", merge, "merge")):
+        other = replace(cfg, r=replace(cfg.r, seed=cfg.r.seed + 100),
+                        s=replace(cfg.s, seed=cfg.s.seed + 100))
+        r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+        r2, s2 = gen(other.r, dev), gen(other.s, dev)
+        call = join_fn(cfg, r, s, out_capacity_for(cfg))
+        out[label] = jit_path(label, dev, call, lambda: call.jitted(r2, s2),
+                              oracle_rows(*relations_np(cfg), algo),
+                              oracle_rows(*relations_np(other), algo))
+        del r, s, r2, s2, call
+        torch.cuda.empty_cache()
+
+    dim_np, fact_np = relations_np(smoke_cfg)
+    other = replace(smoke_cfg, r=replace(smoke_cfg.r, seed=smoke_cfg.r.seed + 100),
+                    s=replace(smoke_cfg.s, seed=smoke_cfg.s.seed + 100))
+    dim2_np, fact2_np = relations_np(other)
+    v, v2 = smoke_cfg.filter_value, smoke_cfg.filter_value // 2
+    dim, fact = (Table.from_numpy(x, device=dev) for x in (dim_np, fact_np))
+    dim2, fact2 = (Table.from_numpy(x, device=dev) for x in (dim2_np, fact2_np))
+    call = join_fn(smoke_cfg, dim, fact, out_capacity_for(smoke_cfg))
+    check(tables_equal(canonicalize(call.jitted(dim, fact, v2)),
+                       oracle_pipeline(dim_np, fact_np, v2)),
+          f"smoke_pipeline jitted at filter value {v2} != oracle")
+    out["smoke_pipeline"] = jit_path(
+        f"smoke_pipeline (filter values {v}, {v2})", dev, call,
+        lambda: call.jitted(dim2, fact2, v), oracle_pipeline(dim_np, fact_np, v),
+        oracle_pipeline(dim2_np, fact2_np, v))
+
+    k1, k2 = 7302945295039616556, 3449075177175606448  # same (bucket, h2)
+    r_np = {"key": np.array([k1, k2, 5, 6, 7], dtype=np.int64),
+            "p0": np.arange(5, dtype=np.int64)}
+    s_np = {"key": np.array([k1, k2, k1, 6], dtype=np.int64),
+            "p0": np.arange(4, dtype=np.int64) * 10}
+    lane = jit(lambda r, s: hash_join(r, s, 1 << 8, impl="lane"))
+    got = lane(*(Table.from_numpy(x, device=dev) for x in (r_np, s_np)))
+    check(lane.reruns == 1 and tables_equal(canonicalize(got), oracle_rows(r_np, s_np)),
+          f"jitted h2 fallback: {lane.reruns} reruns, or rows != oracle")
+    phase("jit", "h2-colliding pair jitted: the replay's ok false, 1 rerun, rows == "
+                 "the C++ oracle's")
+    return out
+
+
 def canon(cols: dict) -> dict:
     """Canonical (lexicographic) row order of host columns."""
     order = np.lexsort(tuple(cols[n] for n in reversed(list(cols))))
@@ -1030,7 +1160,7 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     value, cap = smoke_cfg.filter_value, out_capacity_for(smoke_cfg)
     want = oracle_pipeline(dim_np, fact_np, value)
     dim, fact = Table.from_numpy(dim_np, device=dev), Table.from_numpy(fact_np, device=dev)
-    for impl in ("lane", "sorted"):
+    for impl in ("lane", "sorted"):  # eager
         out, taken = lane_path_taken(lambda: full_pipeline(
             dim, fact, "key", "lt", value, cap, algo="hash", join_impl=impl))
         check(tables_equal(canonicalize(out), want),
@@ -1059,7 +1189,7 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
         w.launches = 0
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    out, taken = lane_path_taken(pipe)
+    out, taken = lane_path_taken(pipe.eager)
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: w.launches for k, w in ws.items()}
@@ -1082,7 +1212,7 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    held, largest, walk_ms = hold_kernel_calls(pipe)
+    held, largest, walk_ms = hold_kernel_calls(pipe.eager)
     for name, (calls, err) in held.items():
         check(calls == launches[name], f"{name}: {calls} calls held, {launches[name]} "
                                        f"launched")
@@ -1120,9 +1250,10 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     op = report["ops"][0]
     check(op["op"] == "pipeline", f"the pipeline's lane path not taken: {op['op']}")
     check(report["out_rows"] == len(truth["key"]), "the runner's pipeline groups")
+    check(op["reruns"] == 0, "config 4: a jitted pipeline reran eagerly")
     del report
     torch.cuda.empty_cache()
-    phase("config4", f"pipeline: end_to_end {op['elapsed_ms']:.4f} ms, "
+    phase("config4", f"pipeline: end_to_end {op['elapsed_ms']:.4f} ms (jitted), "
                      f"{op['rows_per_sec']:.6e} fact rows/s, {len(truth['key'])} groups, "
                      f"{join_rows} join rows, peak memory {peak} B, roofline "
                      f"{op['roofline_pct']:.2f}% (byte model {op['model_bytes']} B)")
@@ -1477,6 +1608,8 @@ def main():
     config2_phase(dev)
     entry_phase(dev)
     fallback_phase(dev)
+    phase("jit", "summary " + json.dumps(jit_phase(dev, cfg1, cfg3,
+                                                   PRESETS["smoke_pipeline"])))
     dryrun_phase(dev)
     per_join["dist"] = config5_phase(dev, K, PRESETS["dist_125m_8shard"])
     per_join["scaling"] = scaling_phase(dev)

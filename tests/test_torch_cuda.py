@@ -18,9 +18,10 @@ from tpq_torch.columnar import canonicalize, tables_equal
 from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh, run_dryrun
 from tpq_torch.dist.mesh import OWNER_SALT, owner_of
 from tpq_torch.hashing import hash_keys, hash_keys_ref, np_hash_keys
+from tpq_torch.jit import jit
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, plan_lane2)
-from tpq_torch.kernels import lane_table
+from tpq_torch.kernels import lane_table, move
 from tpq_torch.kernels.lane_table import (SALT_H2, SALT_LANE, LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
                                           probe_walk_ref, walk_ref)
@@ -32,6 +33,7 @@ from tpq_torch.kernels.radix_sort import (_split1, digit_passes, lsd_radix_sort_
 from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.ops.skew_join import skew_path_taken
 from tpq_torch.ops.union_join import union_sort_specs
+from tpq_torch.query import jit_pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -637,3 +639,179 @@ def test_owner_of_matches_numpy(hash_input, nchips):
     want = (np_hash_keys(keys.cpu().numpy(), 32, OWNER_SALT).view(np.uint32)
             % np.uint32(nchips)).astype(np.int32)
     np.testing.assert_array_equal(owner_of(keys, nchips).cpu().numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# jit: the joins and the pipeline as CUDA graphs, and the look-back epoch
+# on the card
+# ---------------------------------------------------------------------------
+
+# body, probe-side key distribution; R and S 60,000 rows over 65,536 keys
+JIT_JOINS = {
+    "lane": (lambda r, s: hash_join(r, s, 1 << 18, impl="lane"), "uniform"),
+    "sorted": (lambda r, s: hash_join(r, s, 1 << 18, impl="sorted"), "zipf"),
+    "skew": (lambda r, s: hash_join(r, s, 1 << 18, impl="skew"), "zipf"),
+    "merge_radix": (lambda r, s: merge_join(r, s, 1 << 18, sort_engine="radix"),
+                    "zipf"),
+}
+
+
+@pytest.mark.parametrize("name", list(JIT_JOINS))
+def test_jitted_join_replays_equal_eager(dev, name):
+    """One graph, captured at the first call and replayed on three more
+    seeds: every call's rows equal the eager join's, no call reruns."""
+    body, kind = JIT_JOINS[name]
+    jitted = jit(body)
+    for seed in (5, 6, 7, 8):
+        r = Table.from_numpy(datagen.gen_relation_np(60_000, 65_536, payloads=1,
+                                                     seed=seed), device=dev)
+        s = Table.from_numpy(datagen.gen_relation_np(60_000, 65_536, payloads=1,
+                                                     seed=seed + 100, kind=kind),
+                             device=dev)
+        got, want = jitted(r, s), body(r, s)
+        assert int(got.num_rows) == int(want.num_rows) > 0
+        assert tables_equal(canonicalize(got), canonicalize(want))
+    assert len(jitted._graphs) == 1 and jitted.reruns == 0
+
+
+@pytest.mark.parametrize("algo,impl", [("hash", "lane"), ("hash", "sorted"),
+                                       ("merge", "sorted")])
+def test_jitted_pipeline_replays_equal_eager(dev, algo, impl):
+    """One pipeline graph serves three seeds and three filter values (a
+    graph that baked the first value in would answer with its rows)."""
+    pipe = jit_pipeline(1 << 14, algo=algo, join_impl=impl)
+    rows = []
+    for seed, value in ((1, 512), (2, 100), (3, 900)):
+        dim = Table.from_numpy(datagen.gen_relation_np(1024, 1024, payloads=1,
+                                                       seed=seed), device=dev)
+        fact = Table.from_numpy(datagen.gen_relation_np(8192, 1024, payloads=2,
+                                                        seed=seed + 10), device=dev)
+        got, want = pipe(dim, fact, value), pipe.__wrapped__(dim, fact, value)
+        assert int(got.num_rows) == int(want.num_rows) > 0
+        assert tables_equal(canonicalize(got), canonicalize(want))
+        rows.append(int(got.num_rows))
+    assert len(set(rows)) == 3
+    assert len(pipe._graphs) == 1 and pipe.reruns == 0
+
+
+def test_jitted_fallback_reruns_exact(dev):
+    """tests/test_kernels.py:173's h2-colliding pair: the replay's `ok`
+    is false, so each call reruns eagerly and answers with the sorted
+    join's rows."""
+    k1, k2 = 7302945295039616556, 3449075177175606448
+    r = Table.from_numpy({"key": np.array([k1, k2, 5, 6, 7], dtype=np.int64),
+                          "p0": np.arange(5, dtype=np.int64)}, device=dev)
+    s = Table.from_numpy({"key": np.array([k1, k2, k1, 6], dtype=np.int64),
+                          "p0": np.arange(4, dtype=np.int64) * 10}, device=dev)
+    jitted = jit(lambda r, s: hash_join(r, s, 1 << 8, impl="lane"))
+    want = canonicalize(hash_join(r, s, 1 << 8, impl="sorted"))
+    for calls in (1, 2):
+        got = jitted(r, s)
+        assert jitted.reruns == calls and int(got.num_rows) == 4
+        assert tables_equal(canonicalize(got), want)
+
+
+def test_graph_of_pack_and_walk_emit_replays_exact(dev):
+    """A graph that launches PACK twice and the fused walk/emit twice,
+    replayed on four sets of inputs: every output byte-equal to the plain
+    versions at every replay, and every launch of every replay takes the
+    next look-back epoch on the card (4 after the warm-up, 4 more a
+    replay). An epoch fixed at capture would let a replay's look-back
+    read the last replay's statuses as its own wherever a predecessor
+    has not yet published."""
+    cap = 1 << 17
+
+    def body(cols, occ_a, occ_b, tables, qk, lane, qocc_a, qocc_b, spay):
+        return (pack(cols, occ_a), pack(cols, occ_b),
+                fused_walk_emit(tables, qk, lane, qocc_a, spay, cap),
+                fused_walk_emit(tables, qk, lane, qocc_b, spay, cap))
+
+    jitted = jit(body)
+    epochs = []
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        r = datagen.gen_relation(60_000, 65_536, payloads=2, seed=seed, device=dev)
+        s = datagen.gen_relation(60_000, 65_536, payloads=1, seed=seed + 50, device=dev)
+        plan = plan_lane2(r.capacity, s.capacity, out_capacity=cap)
+        tables = build_lane2_tables(r, plan)
+        qk, spay, lane, qocc, _ = _probe_layout(plan, s, "key")
+        half = torch.from_numpy(rng.random(qocc.shape[0]) < 0.5).to(dev, torch.int32)
+        qocc_b = qocc * half
+        n = 300_000
+        cols = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(dev),
+                torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32)).to(dev)]
+        occ_a, occ_b = (torch.from_numpy((rng.random(n) < d).astype(np.int32)).to(dev)
+                        for d in (rng.random(), rng.random()))
+        got = jitted(cols, occ_a, occ_b, tables, qk, lane, qocc, qocc_b, spay)
+        for (outs, total), occ in zip(got[:2], (occ_a, occ_b)):
+            want_outs, want_total = pack_ref(cols, occ)
+            _eq(total, want_total)
+            for a, b in zip(outs, want_outs):
+                _eq(a, b)
+        for (outs, cnt, d_first), q in zip(got[2:], (qocc, qocc_b)):
+            want_outs, want_cnt, want_df = fused_walk_emit_ref(tables, qk, lane, q, spay,
+                                                               cap)
+            _eq(cnt, want_cnt)
+            _eq(d_first, want_df)
+            m = min(int(want_cnt.clamp_max(plan.inline_k).sum()), cap)
+            assert m > 0
+            for a, b in zip(outs, want_outs):
+                _eq(a[:m], b[:m])
+        (graph,) = jitted._graphs.values()
+        epochs.append((int(graph.state[0]) >> 32) & 0xFFFFFFFF)
+    assert epochs == [8, 12, 16, 20]
+    assert len(jitted._graphs) == 1 and jitted.reruns == 0
+
+
+@pytest.mark.parametrize("kernel", ["pack", "walk_emit"])
+def test_look_back_epoch_advances_on_the_card_and_wraps(dev, kernel):
+    """Each launch advances the state's epoch word by one, on the card.
+    The launch of the last epoch (2^32 - 1) zeroes the status words and
+    the epoch, so the launch after the wrap takes epoch 1 on clean words:
+    statuses planted with epoch 1 before the wrap, inclusive and with a
+    wrong count, reach no output."""
+    if kernel == "pack":
+        cols, occ = cases.pack_case("sixteen_cols")
+        args = ([torch.from_numpy(c).to(dev) for c in cols], torch.from_numpy(occ).to(dev))
+        call, want = (lambda: pack(*args)), pack_ref(*args)
+
+        def check(got):
+            _eq(got[1], want[1])
+            for a, b in zip(got[0], want[0]):
+                _eq(a, b)
+    else:
+        plan, args = _walk_emit_case(dev, "D 72")
+        call, want = (lambda: fused_walk_emit(*args)), fused_walk_emit_ref(*args)
+        n = min(int(want[1].clamp_max(plan.inline_k).sum()), args[-1])
+
+        def check(got):
+            _eq(got[1], want[1])
+            _eq(got[2], want[2])
+            for a, b in zip(got[0], want[0]):
+                _eq(a[:n], b[:n])
+
+    stream = torch.cuda.Stream(dev)
+    key = (torch.device(dev).index or 0, stream.cuda_stream)
+    move._PACK_STATE.pop(key, None)
+
+    def epoch(state):  # state[0] is the last epoch << 32 | the tickets drawn
+        return (int(state[0]) >> 32) & 0xFFFFFFFF
+
+    try:
+        with torch.cuda.stream(stream):
+            epochs = []
+            for _ in range(2):
+                check(call())
+                epochs.append(epoch(move._PACK_STATE[key]))
+            assert epochs == [1, 2]
+            state = move._PACK_STATE[key]
+            state[0] = ((2**32 - 2) << 32) - 2**64  # last epoch 2^32 - 2, as int64
+            state[move.STATE_HEADER:] = (1 << 32) | (1 << 31) | 777
+            check(call())  # epoch 2^32 - 1
+            assert int(state[0]) == 0 and int(state[1]) == 0
+            assert not state[move.STATE_HEADER:].any()
+            check(call())  # epoch 1 again
+            assert int(state[0]) == 1 << 32
+        torch.cuda.synchronize(dev)
+    finally:
+        move._PACK_STATE.pop(key, None)

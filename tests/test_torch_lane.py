@@ -20,6 +20,7 @@ from tpq_torch import Table
 from tpq_torch.bench.runner import out_capacity_for
 from tpq_torch.columnar import canonicalize
 from tpq_torch.config import PRESETS
+from tpq_torch.jit import deferred
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_probe_emit2,
                                      lane2_path_taken, plan_lane2)
 from tpq_torch.kernels.lane_table import (LanePlan, lane_tables_from_numpy,
@@ -28,6 +29,7 @@ from tpq_torch.ops import hash_join
 from tpq_torch.ops.union_join import col_planes
 
 from conftest import assert_tables_equal
+from torch_host_reads import host_reads
 
 torch.set_num_threads(2)
 
@@ -173,6 +175,17 @@ def test_hash_join_lane_matches_tpq(tpq_lane):
     assert bool(lane2_path_taken(r, s, CAP))
     out = hash_join(r, s, CAP, impl="lane")
     assert_tables_equal(canonicalize(out), tpq_lane["join"], "lane join")
+
+
+def test_deferred_lane_join_matches_tpq(tpq_lane):
+    """The body a jitted lane join captures (the capture flag set: the
+    `ok` cond recorded, not read; every host read raising) gives tpq's
+    rows, with its pred true."""
+    r, s = Table.from_numpy(R_NP, device="cpu"), Table.from_numpy(S_NP, device="cpu")
+    with deferred() as preds, host_reads("raise"):
+        out = hash_join(r, s, CAP, impl="lane")
+    assert len(preds) == 1 and bool(preds[0])
+    assert_tables_equal(canonicalize(out), tpq_lane["join"], "deferred lane join")
 
 
 @pytest.mark.parametrize("pbits,probe_cap,want", [(0, 1 << 20, 2048), (9, 3072, 3072),

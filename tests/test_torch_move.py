@@ -179,20 +179,21 @@ def test_pack_contract_cases(name):
 
 
 def test_pack_state_takes_a_new_epoch_per_call():
-    """PACK's status words are kept per device and stream: each call
-    takes the next epoch over the same buffer; a larger call, or the
-    epoch's wrap, gets a new zeroed buffer whose epochs start at 1."""
+    """PACK's and the walk/emit's look-back state is kept per device and
+    stream: every call gets the same buffer, made zero, whose epoch word
+    each launch advances on the card (tests/test_torch_cuda.py reads it
+    after each launch and across the wrap), so the wrapper hands no epoch
+    of its own; a larger call gets a new zeroed buffer."""
     cpu, key = torch.device("cpu"), (None, -1)
     move._PACK_STATE.pop(key, None)
     try:
-        s1, e1 = move._pack_state(cpu, -1, 10)
-        s2, e2 = move._pack_state(cpu, -1, 10)
-        assert s1 is s2 and (e1, e2) == (1, 2) and s1.dtype == torch.int64
-        s3, e3 = move._pack_state(cpu, -1, s1.numel() + 1)
-        assert s3 is not s1 and s3.numel() > s1.numel() and e3 == 1
-        assert not s3.any()
-        move._PACK_STATE[key][1] = 2**32 - 1
-        s4, e4 = move._pack_state(cpu, -1, 10)
-        assert s4 is not s3 and e4 == 1 and not s4.any()
+        s1 = move._pack_state(cpu, -1, 10)
+        s2 = move._pack_state(cpu, -1, 10)
+        assert s1 is s2 and s1.dtype == torch.int64 and not s1.any()
+        assert s1.numel() >= 10 + move.STATE_HEADER
+        s3 = move._pack_state(cpu, -1, s1.numel())
+        assert s3 is not s1 and not s3.any()
+        assert s3.numel() >= s1.numel() + move.STATE_HEADER
+        assert move._pack_state(cpu, -1, 10) is s3
     finally:
         move._PACK_STATE.pop(key, None)

@@ -183,8 +183,8 @@ def test_pipeline_lane_impl_matches_sorted():
 
 def test_jit_pipeline_two_filter_values(oracle, tmp_path):
     """One jit_pipeline callable serves two filter values (tpq's one
-    compiled program; here a plain callable), each equal to the chained
-    oracle."""
+    compiled program; the port's jit, which on CPU tensors runs the
+    body), each equal to the chained oracle."""
     dim = datagen.gen_relation_np(512, 512, payloads=1, seed=3)
     fact = datagen.gen_relation_np(2048, 512, payloads=1, seed=4)
     pipe = jit_pipeline(1 << 12, join_impl="lane")

@@ -23,6 +23,7 @@ from tpq.ops import filter as jfilter
 from tpq.ops import skew_join as jskew
 from tpq_torch import Table, colio, datagen
 from tpq_torch.columnar import canonicalize
+from tpq_torch.jit import deferred
 from tpq_torch.kernels.lane_table import (LanePlan, _probe_layout,
                                           lane_tables_from_numpy,
                                           probe_lane_tables)
@@ -33,6 +34,7 @@ from tpq_torch.ops.skew_join import (nominate_heavy_keys, skew_hash_join,
 from tpq_torch.ops.union_join import union_join
 
 from conftest import assert_tables_equal
+from torch_host_reads import host_reads
 
 torch.set_num_threads(2)
 
@@ -219,6 +221,17 @@ def test_skew_join_matches_tpq(tpq_skew_join):
     out = skew_hash_join(_cpu(ZIPF_R), _cpu(ZIPF_S), 1 << 17, **KNOBS)
     assert int(out.num_rows) == 8832
     assert_tables_equal(canonicalize(out), tpq_skew_join, "skew vs tpq")
+
+
+def test_deferred_skew_join_matches_tpq(tpq_skew_join):
+    """The body a jitted skew join captures (the capture flag set: the
+    `ok` cond recorded, the splice run unread; every host read raising)
+    gives tpq's rows, with its pred true."""
+    with deferred() as preds, host_reads("raise"):
+        out = skew_hash_join(_cpu(ZIPF_R), _cpu(ZIPF_S), 1 << 17, **KNOBS)
+    assert len(preds) == 1 and bool(preds[0])
+    assert int(out.num_rows) == 8832
+    assert_tables_equal(canonicalize(out), tpq_skew_join, "deferred skew vs tpq")
 
 
 def _oracle_rows(oracle, tmp_path, r, s, tag):

@@ -2,10 +2,11 @@
 same arguments on one card.
 
 Runs one join of each preset with this tree's code. Every call the join
-makes to PAD, PACK, the walk-only probe or the bucket histogram is also
-handed to the other tree's wrapper (`--before`), whose outputs must be
-byte-equal to this tree's, and both wrappers are timed on its arguments
-in turns, before, after, after, before:
+makes to PAD, PACK, the fused walk/emit, the walk-only probe or the
+bucket histogram is also handed to the other tree's wrapper
+(`--before`), whose outputs must be byte-equal to this tree's (the
+walk/emit's below its emitted rows), and both wrappers are timed on its
+arguments in turns, before, after, after, before:
   - `device_ms`: calls queued behind a spin of the stream, the card alone
     (runner.device_time), every device operation of the call included;
   - `host_ms`: the same calls on the host's clock, wrapper entry to
@@ -42,6 +43,7 @@ N_CALLS = 10  # calls per timing
 CONFIGS = ("single_chip_1m", "zipf_skew", "dist_125m_8shard")
 # kernel -> (module under tpq_torch.kernels, wrapper)
 KERNELS = {"pad": ("move", "pad"), "pack": ("move", "pack"),
+           "fused_walk_emit": ("lane2", "fused_walk_emit"),
            "probe_walk": ("lane_table", "probe_walk"),
            "radix_histogram": ("radix_partition", "radix_histogram")}
 # the calls named in the output: (preset, kernel, index in the join) -> label
@@ -49,6 +51,9 @@ NAMED = {("single_chip_1m", "pad", 0): "config-1 build",
          ("single_chip_1m", "pad", 1): "config-1 probe layout",
          ("single_chip_1m", "pad", 2): "config-1 tail window",
          ("single_chip_1m", "pack", 0): "config-1 tail",
+         ("single_chip_1m", "fused_walk_emit", 0): "config 1",
+         ("zipf_skew", "fused_walk_emit", 0): "config-3 heavy mini table",
+         ("pipeline_100m", "fused_walk_emit", 0): "config-4 pipeline",
          ("single_chip_1m", "probe_walk", 0): "config-1 tables, config-1 S",
          ("zipf_skew", "pack", 0): "config-3 nomination",
          ("zipf_skew", "probe_walk", 0): "config-3 membership of R",
@@ -93,7 +98,8 @@ def size(name: str, args) -> int:
         return args[3] * sum(c.element_size() for c in args[0])
     if name == "pack":
         return args[1].shape[0] * sum(c.element_size() for c in args[0])
-    return args[1].shape[0] if name == "probe_walk" else args[0].shape[0]
+    return args[1].shape[0] if name in ("probe_walk", "fused_walk_emit") \
+        else args[0].shape[0]
 
 
 def describe(name: str, args) -> str:
@@ -103,7 +109,7 @@ def describe(name: str, args) -> str:
     if name == "pack":
         cols, occ = args
         return f"{len(cols)} cols x {occ.shape[0]} rows"
-    if name == "probe_walk":
+    if name in ("probe_walk", "fused_walk_emit"):
         plan = args[0].plan
         return (f"npart {plan.npart}, D {plan.depth}, K {plan.inline_k}, "
                 f"{len(args[0].pays)} payload cols, u={args[1].shape[0]}")
@@ -115,6 +121,15 @@ def same(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return isinstance(b, torch.Tensor) and torch.equal(a, b)
     return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+
+
+def same_call(name: str, args, a, b) -> bool:
+    """Byte equality of two trees' outputs of one call; the walk/emit's
+    rows past the emitted ones are unspecified."""
+    if name != "fused_walk_emit":
+        return same(a, b)
+    n = min(int(a[1].clamp_max(args[0].plan.inline_k).sum()), args[-1])
+    return same(a[1:], b[1:]) and same([x[:n] for x in a[0]], [x[:n] for x in b[0]])
 
 
 def time_pair(fns: dict, device) -> dict:
@@ -133,7 +148,7 @@ def time_pair(fns: dict, device) -> dict:
 def hooked_join(join, trees: dict, device) -> list[dict]:
     """Runs join() with every call of the kernels also made, checked and
     timed on both trees' wrappers; returns one record per call."""
-    from tpq_torch.kernels import lane_table, radix_partition
+    from tpq_torch.kernels import lane2, lane_table, radix_partition
     from tpq_torch.ops import filter as filter_op
     from tpq_torch.ops import skew_join
 
@@ -145,7 +160,7 @@ def hooked_join(join, trees: dict, device) -> list[dict]:
         @functools.wraps(trees["after"][name])
         def call(*args):
             got = trees["after"][name](*args)
-            if not same(got, trees["before"][name](*args)):
+            if not same_call(name, args, got, trees["before"][name](*args)):
                 raise RuntimeError(f"{name}: the two trees' outputs differ")
             idx = counts[name] = counts.get(name, -1) + 1
             times = time_pair({t: (lambda w=w: w[name](*args)) for t, w in trees.items()},
@@ -156,8 +171,8 @@ def hooked_join(join, trees: dict, device) -> list[dict]:
         return call
 
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
-               (filter_op, "pack"), (lane_table, "probe_walk"),
-               (radix_partition, "radix_histogram")]
+               (filter_op, "pack"), (lane2, "fused_walk_emit"),
+               (lane_table, "probe_walk"), (radix_partition, "radix_histogram")]
     saved = [getattr(m, n) for m, n in patched]
     for m, n in patched:
         setattr(m, n, hook(n))
@@ -170,8 +185,9 @@ def hooked_join(join, trees: dict, device) -> list[dict]:
 
 
 def preset_join(config: str, device):
-    """One join of the preset through its entry point, as chip_smoke.py
-    drives it."""
+    """One join of the preset through its entry point, eager (the
+    kernel wrappers run, and are recorded, at every call), as
+    chip_smoke.py drives it."""
     from tpq_torch.bench.profile import dist_join_fn
     from tpq_torch.bench.runner import gen, join_fn, out_capacity_for
     from tpq_torch.config import PRESETS
@@ -180,7 +196,7 @@ def preset_join(config: str, device):
     if cfg.mesh_shape:
         return dist_join_fn(cfg, device)[0]
     r, s = gen(cfg.r, device), gen(cfg.s, device)
-    return join_fn(cfg, r, s, out_capacity_for(cfg))
+    return join_fn(cfg, r, s, out_capacity_for(cfg)).eager
 
 
 def config1_tables_probe(device):

@@ -6,8 +6,12 @@ The end-to-end time per join is taken apart from the trace, with CUDA
 events around unprofiled joins, so the profiler's own host cost does not
 stretch it.
 
+A single-card join or pipeline runs jitted (the bench runner's join_fn:
+one CUDA graph replayed a call); `--eager` runs the same body eagerly,
+one host read a cond.
+
 CLI (needs a card), with the bench runner's preset and join options:
-  python -m tpq_torch.bench.profile --config=zipf_skew
+  python -m tpq_torch.bench.profile --config=zipf_skew [--eager]
   python -m tpq_torch.bench.profile --config=single_chip_1m --algo=merge \\
       --sort-engine=radix
   python -m tpq_torch.bench.profile --config=dist_125m_8shard
@@ -111,6 +115,8 @@ def main(argv=None):
 
     p = argparse.ArgumentParser()
     add_join_args(p)
+    p.add_argument("--eager", action="store_true",
+                   help="run the join or pipeline eagerly, not as its CUDA graph")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tpq_torch.bench.profile traces a CUDA card; none is visible")
@@ -127,6 +133,9 @@ def main(argv=None):
         if cfg.pipeline:
             what = f"pipeline (filter key < {cfg.filter_value}, {what}, hash_aggregate)"
         fn = join_fn(cfg, r, s, out_capacity_for(cfg))
+        if args.eager:
+            fn = fn.eager
+        what += ", eager" if args.eager else ", jitted"
     report = {"config": cfg.name, "join": what, "card": card_info(),
               **profile_join(fn, dev)}
     print(json.dumps(report))

@@ -4,11 +4,14 @@ joins (hash with the lane, sorted and skew impls; merge) and, for a
 (config 4, tpq_torch/query.py).
 
 Generates the seed-stable relations of a preset on the card (uniform
-ones by the on-device streams), times the join or pipeline with CUDA
-events after a warm-up, accounts it against the measured bandwidth
-roofline, and labels the row honestly when the lane or skew path fell
-back to the sorted engine. Times exist only for a run on a card: on the
-CPU, run_config runs the operator once and reports no time.
+ones by the on-device streams), times the join or pipeline jitted
+(tpq_torch/jit.py: one CUDA graph replayed per call, as tpq's runner
+jits every timed call) with CUDA events after a warm-up, accounts it
+against the measured bandwidth roofline, and labels the row honestly
+when the lane or skew path fell back to the sorted engine, and with the
+jitted calls that reran eagerly (`reruns`). Times exist only for a run
+on a card: on the CPU, run_config runs the operator once, eagerly, and
+reports no time.
 
 CLI:  python -m tpq_torch.bench.runner --config=single_chip_1m [--phases]
       [--algo hash|merge] [--impl lane|sorted|skew] [--sort-engine lax|radix]
@@ -29,6 +32,7 @@ baseline report's. `--device cpu` runs without times (values null).
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -42,6 +46,7 @@ from tpq_torch.bench import roofline
 from tpq_torch.bench.report import emit_json, markdown_table
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.config import PRESETS, BenchConfig, RelationSpec
+from tpq_torch.jit import jit
 from tpq_torch.log import GLOBAL_LOG
 from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.ops.filter import compact, keep_mask
@@ -132,9 +137,11 @@ def device_time(fn, device, n: int) -> tuple[float, float]:
 
 
 def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]:
-    """Per-phase ms of the lane join on the card. `tail+glue` is
-    probe_emit minus layout and kernel; `other` is end to end minus build
-    and probe_emit (the `ok` branch and its sync)."""
+    """Per-phase ms of the lane join on the card, each phase jitted (one
+    graph replayed per call, as tpq's phases are jitted). `tail+glue` is
+    probe_emit minus layout and kernel. End to end is not split further:
+    each phase's graph copies its own inputs and outputs, so end to end
+    minus the phases is no time of the join's own."""
     from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                          lane2_hash_join, lane2_probe_emit,
                                          plan_lane2)
@@ -145,38 +152,50 @@ def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]
     out_cap = out_capacity_for(cfg)
     plan = plan_lane2(r.capacity, s.capacity, out_capacity=out_cap)
 
-    def ms(fn):
-        return cuda_time(fn, dev, iters)[0] * 1e3
+    def ms(fn, *args):
+        jitted = jit(fn)
+        return cuda_time(lambda: jitted(*args), dev, iters)[0] * 1e3
 
     tables = build_lane2_tables(r, plan)
     qk, spay, lane, qocc, _ = _probe_layout(plan, s, "key")
-    t_build = ms(lambda: build_lane2_tables(r, plan))
-    t_layout = ms(lambda: _probe_layout(plan, s, "key"))
-    t_kernel = ms(lambda: fused_walk_emit(tables, qk, lane, qocc, spay, out_cap))
-    t_pe = ms(lambda: lane2_probe_emit(tables, s, out_cap))
-    t_e2e = ms(lambda: lane2_hash_join(r, s, out_cap))
+    t_build = ms(lambda r: build_lane2_tables(r, plan), r)
+    t_layout = ms(lambda s: _probe_layout(plan, s, "key"), s)
+    t_kernel = ms(lambda *a: fused_walk_emit(*a, out_cap), tables, qk, lane, qocc, spay)
+    t_pe = ms(lambda t, s: lane2_probe_emit(t, s, out_cap), tables, s)
+    t_e2e = ms(lambda r, s: lane2_hash_join(r, s, out_cap), r, s)
     return [
         {"phase": "build(sort+pad)", "ms": t_build},
         {"phase": "probe_layout(sort+pad)", "ms": t_layout},
         {"phase": "walk_emit(kernel)", "ms": t_kernel},
         {"phase": "tail+glue", "ms": t_pe - t_layout - t_kernel},
-        {"phase": "other(ok branch)", "ms": t_e2e - t_build - t_pe},
         {"phase": "end_to_end", "ms": t_e2e},
     ]
 
 
 def join_fn(cfg: BenchConfig, r: Table, s: Table, out_cap: int):
     """The join a preset names, or its pipeline for a `pipeline` preset
-    (filter key < filter_value), as a call with no arguments."""
+    (filter key < filter_value, the value traced), jitted as tpq's runner
+    jits fn (tpq/bench/runner.py:126), as a call with no arguments. The
+    call's `.eager` runs the same body without the graph (where kernel
+    launches can be counted) and `.jitted` is the jitted callable (its
+    `reruns`, `clear()`)."""
     j = cfg.join
     if cfg.pipeline:
-        pipe = jit_pipeline(out_cap, algo=j.algo, join_impl=j.impl)
-        return lambda: pipe(r, s, cfg.filter_value)
-    if j.algo == "hash":
-        return lambda: hash_join(r, s, out_cap, impl=j.impl)
-    if j.algo == "merge":
-        return lambda: merge_join(r, s, out_cap, sort_engine=j.sort_engine)
-    raise ValueError(f"unknown algo {j.algo!r}")
+        fn = jit_pipeline(out_cap, algo=j.algo, join_impl=j.impl)
+        args = (r, s, cfg.filter_value)
+    elif j.algo == "hash":
+        fn = jit(functools.partial(hash_join, out_capacity=out_cap, impl=j.impl))
+        args = (r, s)
+    elif j.algo == "merge":
+        fn = jit(functools.partial(merge_join, out_capacity=out_cap,
+                                   sort_engine=j.sort_engine))
+        args = (r, s)
+    else:
+        raise ValueError(f"unknown algo {j.algo!r}")
+    call = functools.partial(fn, *args)
+    call.eager = functools.partial(fn.__wrapped__, *args)
+    call.jitted = fn
+    return call
 
 
 def add_join_args(p) -> None:
@@ -233,10 +252,12 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
             hbm_bw = roofline.measure_hbm_bw(device=dev)
         with trace_if(trace_dir), annotate(span):
             sec, out = cuda_time(fn, dev, cfg.iters, cfg.warmup)
+        fn.jitted.clear()  # the graph's memory pool goes before the caller's next step
         model = bytes_model(r.capacity, len(r.columns), s.capacity,
                             len(s.columns), out_cap)
         row = roofline.RooflineResult(op, sec, sum(b.total for b in model.values()),
                                       hbm_bw, cfg.s.rows).row()
+        row["reruns"] = fn.jitted.reruns
         name = torch.cuda.get_device_name(dev)
     else:
         with trace_if(trace_dir), annotate(span):

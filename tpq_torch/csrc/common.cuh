@@ -64,13 +64,31 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
 // shared by PACK and the fused walk/emit. Work items (tiles) are taken
 // in order through an atomic ticket, so an item's predecessors are held
 // by running blocks and waiting on them cannot deadlock. An item's
-// status is one 64-bit word, call epoch << 32 | inclusive flag << 31 |
+// status is one 64-bit word, launch epoch << 32 | inclusive flag << 31 |
 // count, written with st.release and read with ld.acquire, so no reader
-// sees a torn pair; the epoch makes the words of earlier calls read as
-// not yet written, so nothing is reset between calls.
+// sees a torn pair; the epoch makes the words of earlier launches read
+// as not yet written, so nothing is reset between launches.
+//
+// The state buffer, kept per device and stream by the wrappers
+// (tpq_torch/kernels/move.py _pack_state) and zero when it is made:
+//   state[0]  the epoch of the last launch (0: none yet) << 32 | the
+//             tickets drawn in this one. A block's atomic draw returns
+//             both, so every block learns the launch's epoch (the last
+//             one + 1) with its first ticket, at no extra load or fence;
+//             the block that draws the launch's last ticket, after every
+//             other draw, stores the new epoch with a count of 0. The
+//             epoch lives on the device: a CUDA graph that replays a
+//             launch takes a new one at every replay;
+//   state[1]  blocks finished, counted only by the launch of epoch
+//             kLastEpoch (2^32 - 1): its last block to finish zeroes the
+//             status words and state[0], so the launch after the wrap
+//             starts again at epoch 1 on clean words;
+//   state[kStateHeader + t]  work item t's status.
 constexpr uint64_t kTagMask = 0xffffffff00000000ull;
 constexpr uint64_t kInclusive = 1ull << 31;
 constexpr uint64_t kCountMask = kInclusive - 1;
+constexpr int kStateHeader = 2;  // STATE_HEADER in tpq_torch/kernels/move.py
+constexpr uint32_t kLastEpoch = 0xffffffffu;
 
 static __device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
   uint64_t v;
@@ -111,4 +129,40 @@ static __device__ int64_t look_back(uint64_t* status, int64_t t, uint32_t agg,
   }
   if (lane == 0) st_release(&status[t], tag | kInclusive | uint64_t(prefix + agg));
   return prefix;
+}
+
+// Thread 0 of a block: draws the next ticket of the launch and sets
+// *epoch to the launch's epoch.
+static __device__ __forceinline__ uint64_t draw_ticket(uint64_t* state, uint32_t* epoch) {
+  const unsigned long long w = atomicAdd(reinterpret_cast<unsigned long long*>(state), 1ull);
+  *epoch = uint32_t(w >> 32) + 1;
+  return w & 0xffffffffull;
+}
+
+// Thread 0 of the block that drew the launch's last ticket (every other
+// draw came before it): the tickets rearmed, the launch's epoch stored.
+static __device__ __forceinline__ void finish_tickets(uint64_t* state, uint32_t epoch) {
+  atomicExch(reinterpret_cast<unsigned long long*>(state),
+             static_cast<unsigned long long>(epoch) << 32);
+}
+
+// Thread 0 of every block, after the block's last access to a status
+// word (a block's statuses are read and written by its warp 0 only). In
+// the launch of epoch kLastEpoch the block that gets here last zeroes
+// the status words [kStateHeader, words), then state[1] and state[0]:
+// the launch after the wrap starts again at epoch 1 on clean words. One
+// thread zeroes them, once every 2^32 launches; the common path is one
+// compare, with no barrier (a block-wide form at the walk/emit's end
+// cost 0.78 of its 5.77 ms at config 4 on an H100, PERF.md).
+static __device__ __forceinline__ void finish_block(uint64_t* state, int64_t words,
+                                                    uint32_t epoch) {
+  if (epoch != kLastEpoch) return;
+  __threadfence();  // this block's status and epoch stores come first
+  if (atomicAdd(reinterpret_cast<unsigned long long*>(&state[1]), 1ull) != gridDim.x - 1ull)
+    return;
+  __threadfence();
+  for (int64_t i = kStateHeader; i < words; i++) state[i] = 0;
+  __threadfence();
+  atomicExch(reinterpret_cast<unsigned long long*>(&state[1]), 0ull);
+  atomicExch(reinterpret_cast<unsigned long long*>(&state[0]), 0ull);
 }

@@ -44,9 +44,11 @@
 //     placed by a single-pass scan with decoupled look-back over the
 //     work items (look_back in common.cuh, with PACK's 64-bit (epoch,
 //     flag, count) statuses in a buffer kept per device and stream; the
-//     CTA with the last ticket rearms the counter, the last work item
-//     writes total_inline), never by atomics: rows go out in (padded
-//     query, j) order, the same bytes on every run;
+//     epoch is read from that buffer, and the CTA with the last ticket
+//     rearms the counter and stores the epoch, so a graph replay takes a
+//     new one; the last work item writes total_inline), never by
+//     atomics: rows go out in (padded query, j) order, the same bytes on
+//     every run;
 //   * the CTA's rows [offset, offset + rows) are written by row, not by
 //     query: a thread takes two neighbouring rows, finds each one's query
 //     by binary search over the scanned counts and stores every column
@@ -280,7 +282,8 @@ __device__ __forceinline__ void store_pair(int64_t* __restrict__ dst, int64_t g0
     dst[g0 + 1] = b;
 }
 
-// state[0] is the ticket counter, state[1 + t] work item t's status.
+// The state buffer's layout is in common.cuh: the epoch and ticket word,
+// the wrap count, and work item t's status at state[kStateHeader + t].
 __global__ void __launch_bounds__(kEmitThreads)
     walk_emit_kernel(const int64_t* __restrict__ t_key, const int32_t* __restrict__ blen,
                      const int64_t* __restrict__ qk, const int32_t* __restrict__ lane,
@@ -288,11 +291,12 @@ __global__ void __launch_bounds__(kEmitThreads)
                      int chunk, int64_t nwork, int32_t* __restrict__ cnt_out,
                      int32_t* __restrict__ dfirst_out, EmitCols cols,
                      int64_t* __restrict__ out_key, int64_t out_capacity,
-                     uint64_t* __restrict__ state, uint32_t epoch,
+                     uint64_t* __restrict__ state, int64_t state_words,
                      int32_t* __restrict__ total_inline) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
   __shared__ int64_t s_ticket, s_off;
+  __shared__ uint32_t s_epoch;
   __shared__ int32_t warp_sums[32];
   const EmitSmem L = emit_smem(D, K, chunk);
   const int64_t* s_key = reinterpret_cast<const int64_t*>(smem);
@@ -302,11 +306,12 @@ __global__ void __launch_bounds__(kEmitThreads)
   uint8_t* s_lane = smem + L.lane;
 
   if (threadIdx.x == 0) {
-    const unsigned long long t =
-        atomicAdd(reinterpret_cast<unsigned long long*>(state), 1ull);
+    uint32_t e;
+    const uint64_t t = draw_ticket(state, &e);
     if (t == uint64_t(nwork) - 1)  // every CTA of the launch has its ticket
-      atomicExch(reinterpret_cast<unsigned long long*>(state), 0ull);
+      finish_tickets(state, e);
     s_ticket = int64_t(t);
+    s_epoch = e;
     mbar_init(&bar);
   }
   __syncthreads();
@@ -380,10 +385,12 @@ __global__ void __launch_bounds__(kEmitThreads)
   }
   if (threadIdx.x == 0) s_lo[qn] = uint16_t(rows);
   if (threadIdx.x < 32) {
-    const int64_t prefix = look_back(state + 1, t, uint32_t(rows), uint64_t(epoch) << 32);
+    const int64_t prefix =
+        look_back(state + kStateHeader, t, uint32_t(rows), uint64_t(s_epoch) << 32);
     if (threadIdx.x == 0) {
       s_off = prefix;
       if (t == nwork - 1) *total_inline = int32_t(prefix + rows);
+      finish_block(state, state_words, s_epoch);
     }
   }
   __syncthreads();
@@ -429,8 +436,8 @@ int tpq_walk_emit_slots(int D, int K, int chunk) {
 }
 
 // One work item per `chunk` (<= 4,096) padded queries of a partition.
-// state: state_words >= nwork + 1 words, zero before the first call and
-// left for the next call on the same stream with epoch + 1 (epoch >= 1).
+// state: state_words >= nwork + kStateHeader words, zero before the first
+// call on the stream and left for the next one (layout in common.cuh).
 // t_key and blen 16-byte aligned; out columns 16-byte aligned.
 int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
                   const int32_t* blen, int npart, int D, int K, int probe_cap, int chunk,
@@ -438,12 +445,12 @@ int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
                   const int64_t* const* s_pays, int ns, int32_t* cnt, int32_t* dfirst,
                   int64_t* out_key, int64_t* const* out_r, int64_t* const* out_s,
                   int64_t out_capacity, uint64_t* state, int64_t state_words,
-                  uint32_t epoch, int32_t* total_inline, cudaStream_t stream) {
+                  int32_t* total_inline, cudaStream_t stream) {
   if (K < 1 || K > kMaxK || chunk < 1 || chunk > kMaxChunk || nr < 0 ||
       nr > TPQ_MAX_COLS || ns < 0 || ns > TPQ_MAX_COLS || npart < 1 || probe_cap < 1)
     return int(cudaErrorInvalidValue);
   const int64_t nwork = int64_t(npart) * ((probe_cap + chunk - 1) / chunk);
-  if (nwork + 1 > state_words) return int(cudaErrorInvalidValue);
+  if (nwork + kStateHeader > state_words) return int(cudaErrorInvalidValue);
   EmitCols cols;
   cols.nr = nr;
   cols.ns = ns;
@@ -459,7 +466,7 @@ int tpq_walk_emit(const int64_t* t_key, const int64_t* const* t_pays, int nr,
   cudaFuncSetAttribute(walk_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   walk_emit_kernel<<<unsigned(nwork), kEmitThreads, smem, stream>>>(
       t_key, blen, qk, lane, qocc, D, K, probe_cap, chunk, nwork, cnt, dfirst, cols,
-      out_key, out_capacity, state, epoch, total_inline);
+      out_key, out_capacity, state, state_words, total_inline);
   return int(cudaGetLastError());
 }
 

@@ -44,7 +44,7 @@
 //   - warp 0 publishes the tile's count, then looks back over its
 //     predecessors 32 at a time, adding counts until it meets an
 //     inclusive prefix, and publishes its own (look_back in
-//     common.cuh; a status is one 64-bit word, call epoch << 32 |
+//     common.cuh; a status is one 64-bit word, launch epoch << 32 |
 //     inclusive flag << 31 | count);
 //   - each column of the tile is read in 16-byte loads (a sector holds
 //     four rows, so a dead neighbour costs no extra DRAM traffic),
@@ -53,12 +53,14 @@
 //     every block zeroes its share of [total, N); the last tile writes
 //     `total`.
 // Output order comes from the scan alone: two calls give the same bytes.
-// The status words need no reset: the wrapper hands each call a new
-// epoch over a buffer it keeps per device and stream, and the block that
-// draws the launch's last ticket rearms the ticket counter to 0. The
-// first version issued ncols + 1 memsets and three dependent launches
-// (count, one-block scan, scatter), read occ twice, made 16 block scans
-// a tile and wrote each output twice.
+// The status words need no reset: each launch takes a new epoch from
+// the state buffer the wrapper keeps per device and stream (its layout
+// in common.cuh), and the block that draws the launch's last ticket
+// rearms the ticket counter and stores the epoch, so a CUDA graph that
+// replays the launch takes a new epoch each time. The first version
+// made ncols + 1 memsets and three dependent launches (count,
+// one-block scan, scatter), read occ twice, made 16 block scans a tile
+// and wrote each output twice.
 //
 // Every entry point returns cudaGetLastError() (0 on success).
 
@@ -270,30 +272,30 @@ __device__ __forceinline__ void zero_range(void* dst, int64_t from, int64_t to) 
   for (int64_t i = a / V + tid; i < b / V; i += stride) reinterpret_cast<Vec*>(d)[i] = z;
 }
 
-// state[0] is the ticket counter, state[1 + t] tile t's status.
+// The state buffer's layout is in common.cuh: the epoch and ticket word,
+// the wrap count, and tile t's status at state[kStateHeader + t].
 __global__ void __launch_bounds__(kPackThreads)
     pack_kernel(ColList cols, const int32_t* __restrict__ occ, int64_t n,
-                int64_t ntiles, uint64_t* __restrict__ state, uint32_t epoch,
+                int64_t ntiles, uint64_t* __restrict__ state, int64_t state_words,
                 int32_t* __restrict__ total) {
   __shared__ int64_t ticket, out0, live_total;
   __shared__ int32_t group_off[kPackRounds * kPackWarps], tile_count;
+  __shared__ uint32_t epoch;
   __shared__ __align__(16) int64_t stage[kPackTile];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint64_t* status = state + 1;
-  const uint64_t tag = uint64_t(epoch) << 32;
+  uint64_t* status = state + kStateHeader;
 
   for (;;) {
     if (threadIdx.x == 0) {
-      const unsigned long long t =
-          atomicAdd(reinterpret_cast<unsigned long long*>(state), 1ull);
+      const uint64_t t = draw_ticket(state, &epoch);
       // the launch's last ticket: every block has drawn its final one
-      if (t == uint64_t(ntiles) + gridDim.x - 1)
-        atomicExch(reinterpret_cast<unsigned long long*>(state), 0ull);
+      if (t == uint64_t(ntiles) + gridDim.x - 1) finish_tickets(state, epoch);
       ticket = int64_t(t);
     }
     __syncthreads();
     const int64_t t = ticket;
     if (t >= ntiles) break;
+    const uint64_t tag = uint64_t(epoch) << 32;
     const int64_t base = t * kPackTile;
 
     int4 v[kPackRounds];
@@ -361,6 +363,7 @@ __global__ void __launch_bounds__(kPackThreads)
   // every tile is taken; zeros from the total on, once the last tile's
   // inclusive prefix is out (its holder is running: no deadlock)
   if (threadIdx.x == 0) {
+    const uint64_t tag = uint64_t(epoch) << 32;
     int64_t tot = 0;
     if (ntiles > 0) {
       uint64_t w;
@@ -372,6 +375,7 @@ __global__ void __launch_bounds__(kPackThreads)
       *total = 0;  // n == 0: one block
     }
     live_total = tot;
+    finish_block(state, state_words, epoch);
   }
   __syncthreads();
   for (int c = 0; c < cols.n; c++) {
@@ -411,19 +415,19 @@ int tpq_pad(const void* const* src, void* const* dst, const int* esz, int ncols,
   return int(cudaGetLastError());
 }
 
-// state: state_words >= ceil(n / kPackTile) + 1 words, zero before the
-// first call and left for the next call on the same stream with epoch + 1
-// (epoch >= 1). occ must be 16-byte aligned.
+// state: state_words >= ceil(n / kPackTile) + kStateHeader words, zero
+// before the first call on the stream and left for the next one (layout
+// in common.cuh). occ must be 16-byte aligned.
 int tpq_pack(const void* const* src, void* const* dst, const int* esz, int ncols,
              const int32_t* occ, int64_t n, uint64_t* state, int64_t state_words,
-             uint32_t epoch, int32_t* total, cudaStream_t stream) {
+             int32_t* total, cudaStream_t stream) {
   const ColList cols = make_cols(src, dst, esz, ncols);
   const int64_t ntiles = (n + kPackTile - 1) / kPackTile;
-  if (ntiles + 1 > state_words) return int(cudaErrorInvalidValue);
+  if (ntiles + kStateHeader > state_words) return int(cudaErrorInvalidValue);
   const int64_t cap = pack_grid_cap();
   const int64_t grid = ntiles < 1 ? 1 : ntiles < cap ? ntiles : cap;
   pack_kernel<<<unsigned(grid), kPackThreads, 0, stream>>>(cols, occ, n, ntiles, state,
-                                                           epoch, total);
+                                                           state_words, total);
   return int(cudaGetLastError());
 }
 

@@ -33,9 +33,9 @@ P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint3
 _SIGNATURES = {
     # name: argtypes (restype is int: the cudaError_t of the launch)
     "tpq_pad": [P, P, P, I32, P, P, I32, I64, I64, P, P],
-    "tpq_pack": [P, P, P, I32, P, I64, P, I64, U32, P, P],
+    "tpq_pack": [P, P, P, I32, P, I64, P, I64, P, P],
     "tpq_walk_emit": [P, P, I32, P, I32, I32, I32, I32, I32, P, P, P, P, I32, P,
-                      P, P, P, P, I64, P, I64, U32, P, P],
+                      P, P, P, P, I64, P, I64, P, P],
     "tpq_walk_emit_smem": [I32, I32, I32],
     "tpq_walk_emit_slots": [I32, I32, I32],
     "tpq_probe_walk": [P, P, I32, P, I32, I32, I32, I32, I32, P, P, P, P, P, P, P],

@@ -11,7 +11,7 @@ operator.
 `fused_walk_emit` runs tpq_torch/csrc/lane2.cu (one launch) on CUDA
 tensors and `fused_walk_emit_ref`, its plain torch version, on CPU
 tensors. Its look-back statuses share PACK's buffer, kept per device and
-stream (move._pack_state: each call takes a new epoch). The
+stream (move._pack_state; each launch takes a new epoch from it). The
 kernel emits rows in (padded query, j) order where tpq's emits
 (4096-query tile, j, position); the oracle contract compares rows after
 canonical ordering, and the plain version fixes the port's order
@@ -150,7 +150,7 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
     total_inline = torch.empty((), dtype=I32, device=dev)
     stream = _build.stream_of(qk)
     nwork = npart * -(-probe_cap // chunk)
-    state, epoch = _pack_state(dev, stream, nwork + 1)
+    state = _pack_state(dev, stream, nwork)
     with _build.on_device(qk):
         code = lib.tpq_walk_emit(
             t_key.data_ptr(), _build.ptr_array(t_pays), len(t_pays),
@@ -160,7 +160,7 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
             cnt.data_ptr(), d_first.data_ptr(), outs[0].data_ptr(),
             _build.ptr_array(outs[1:1 + len(t_pays)]),
             _build.ptr_array(outs[1 + len(t_pays):]), out_capacity,
-            state.data_ptr(), state.numel(), epoch, total_inline.data_ptr(), stream)
+            state.data_ptr(), state.numel(), total_inline.data_ptr(), stream)
     _build.check(code, "fused_walk_emit")
     fused_walk_emit.launches += 1
     return outs, cnt, d_first
@@ -217,6 +217,7 @@ def lane2_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     static-capacity violation. `probe_keep` (bool[s.capacity]) is a
     pushed-down probe-side filter: the join of r with filter(s, keep),
     its rows dropped in the probe layout (the config-4 fusion)."""
+    from tpq_torch.jit import cond
     from tpq_torch.ops.filter import compact
     from tpq_torch.ops.union_join import union_join
 
@@ -228,9 +229,9 @@ def lane2_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
                                r_names=r_names,
                                r_dtypes=[r.col(n).dtype for n in r_names],
                                keep=probe_keep)
-    # tpq's lax.cond(ok, ...) is a host branch here (one device sync)
-    if bool(ok):
-        return out
-    if probe_keep is not None:
-        s = compact(s, probe_keep)
-    return union_join(r, s, out_capacity, key=key)
+    def fallback():
+        s_kept = s if probe_keep is None else compact(s, probe_keep)
+        return union_join(r, s_kept, out_capacity, key=key)
+
+    # tpq's lax.cond(ok, ..., fallback) (tpq/kernels/lane2.py:349)
+    return cond(ok, lambda: out, fallback)

@@ -21,7 +21,9 @@ The layout is tpq's, so that the same inputs give the same tables:
     (tpq_torch/csrc/lane2.cu) beside its plain version `probe_walk_ref`.
   * tail: queries with more than K matches are PACKed, their extra
     matches expanded and PADded into a window spliced after the inline
-    rows.
+    rows. It always runs (tpq conds it on a nonzero tail,
+    tpq/kernels/lane_table.py:448): with no tail rows only slots at or
+    after the inline total change, which lie past num_rows.
 
 Any static-capacity violation (bucket depth > D, probe partition
 overflow, tail caps, output overflow) clears `ok`, and lane2_hash_join
@@ -430,12 +432,13 @@ def _probe_emit_common(fused_fn, tables: LaneTables, s: Table,
     ok = tables.ok & ~probe_ovf & caps_ok
 
     # the Table contract leaves rows >= num_rows unspecified: the emit
-    # buffer's unwritten slots stay as they are
+    # buffer's unwritten slots stay as they are. tpq's lax.cond(tail_out >
+    # 0, ...) is dropped: with no tail rows PACK finds none, every
+    # expanded slot is invalid, and only the slots at or after
+    # total_inline change, which lie past num_rows (no host read)
     cols = list(out_cols)
-    # tpq's lax.cond(tail_out > 0, ...) is a host branch (one device sync)
-    if bool(tail_out64 > 0):
-        _splice_tail(cols, tables, cnt_eff, d_first, qk_p, spay_p, lane_p,
-                     total_inline, out_capacity)
+    _splice_tail(cols, tables, cnt_eff, d_first, qk_p, spay_p, lane_p,
+                 total_inline, out_capacity)
 
     names = [key] + [f"r_{n}" for n in r_names] + [f"s_{n}" for n in s_names]
     dtypes = ([s.col(key).dtype] + list(r_dtypes)

@@ -27,6 +27,7 @@ from tpq_torch.kernels import _build
 I32 = torch.int32
 MAX_COLS = 16  # TPQ_MAX_COLS in csrc/common.cuh
 PACK_TILE = 4096  # kPackTile in csrc/move.cu (the kernel checks the state size)
+STATE_HEADER = 2  # kStateHeader in csrc/common.cuh: epoch and ticket, wrap count
 
 
 def _check_cols(planes, n: int, what: str) -> list[torch.Tensor]:
@@ -123,22 +124,24 @@ def pack_ref(planes, occ: torch.Tensor):
     return outs, total
 
 
-# (device index, stream) -> [int64 status words, last epoch]: PACK's
-# ticket counter and tile statuses, kept across calls. Each call takes
-# the next epoch, so the words of earlier calls read as not yet written
-# and nothing is reset between calls; the kernel rearms the counter.
+# (device index, stream) -> int64 words: the look-back state of PACK and
+# the fused walk/emit (epoch and ticket counter, wrap count, then the
+# work items' statuses; csrc/common.cuh), kept across calls. Each launch
+# takes the next epoch from the buffer itself, so the words of earlier
+# calls read as not yet written, nothing is reset between calls, and a
+# CUDA graph that replays a launch takes a new epoch at every replay.
 _PACK_STATE: dict = {}
 
 
-def _pack_state(device: torch.device, stream: int, words: int):
+def _pack_state(device: torch.device, stream: int, items: int) -> torch.Tensor:
+    """The state buffer of `stream` on `device`, with room for `items`
+    work items; a larger call gets a new zeroed one."""
     key = (device.index, stream)
     st = _PACK_STATE.get(key)
-    if st is None or st[0].numel() < words or st[1] >= 2**32 - 1:
-        size = max(words, 2 * st[0].numel() if st is not None else 1024)
-        st = _PACK_STATE[key] = [torch.zeros(size, dtype=torch.int64,
-                                             device=device), 0]
-    st[1] += 1
-    return st[0], st[1]
+    if st is None or st.numel() < items + STATE_HEADER:
+        size = max(items + STATE_HEADER, 2 * st.numel() if st is not None else 1024)
+        st = _PACK_STATE[key] = torch.zeros(size, dtype=torch.int64, device=device)
+    return st
 
 
 def pack(planes, occ: torch.Tensor):
@@ -155,14 +158,14 @@ def pack(planes, occ: torch.Tensor):
         occ = occ.to(I32, memory_format=torch.contiguous_format, copy=True)
     lib = _build.lib()
     stream = _build.stream_of(occ)
-    state, epoch = _pack_state(occ.device, stream, -(-n // PACK_TILE) + 1)
+    state = _pack_state(occ.device, stream, -(-n // PACK_TILE))
     outs = [torch.empty_like(p) for p in planes]
     total = torch.empty((), dtype=I32, device=occ.device)
     with _build.on_device(occ):
         code = lib.tpq_pack(
             _build.ptr_array(planes), _build.ptr_array(outs),
             _build.int_array([p.element_size() for p in planes]), len(planes),
-            occ.data_ptr(), n, state.data_ptr(), state.numel(), epoch,
+            occ.data_ptr(), n, state.data_ptr(), state.numel(),
             total.data_ptr(), stream)
     _build.check(code, "pack")
     pack.launches += 1

@@ -58,9 +58,14 @@ def compact(t: Table, keep: torch.Tensor) -> Table:
 
 def keep_mask(t: Table, col: str, op: str, value) -> torch.Tensor:
     """bool[capacity]: `col <op> value`, the value taken in the column's
-    dtype (tpq's jnp.asarray(value, c.dtype))."""
+    dtype (tpq's jnp.asarray(value, c.dtype)). `value` is a number or a
+    0-d tensor (jit passes a traced number as a device scalar); neither
+    is copied from the host to the card: a number becomes a CPU scalar,
+    which the comparison takes as a kernel argument."""
     c = t.col(col)
-    return _OPS[op](c, torch.as_tensor(value, dtype=c.dtype, device=c.device))
+    v = value.to(c.dtype) if isinstance(value, torch.Tensor) else \
+        torch.as_tensor(value, dtype=c.dtype)
+    return _OPS[op](c, v)
 
 
 def filter_table(t: Table, col: str, op: str, value) -> Table:

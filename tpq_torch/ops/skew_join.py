@@ -20,9 +20,9 @@ This operator splits the key set instead:
   5. SPLICE — the heavy buffer written at light.num_rows.
 
 Any static violation (list overflow, mini-table overflow, lane caps,
-heavy rows past the heavy buffer, splice room) sends the whole join through the union-sort engine. tpq
-decides with lax.cond; here it is one host branch on `ok` (one device
-sync), as in lane2_hash_join.
+heavy rows past the heavy buffer, splice room) sends the whole join
+through the union-sort engine: tpq's lax.cond (tpq/ops/skew_join.py:182)
+is jit.cond, one host read eager, none under a graph.
 """
 
 from __future__ import annotations
@@ -141,20 +141,26 @@ def skew_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
                    stride: int = 16, sample_threshold: int = 16) -> Table:
     """Heavy/light split inner equi-join (module docstring), with the
     oracle's semantics. Rows go out light matches first, then heavy."""
+    from tpq_torch.jit import cond
     from tpq_torch.ops.union_join import union_join
 
     light, heavy, ok = _split(r, s, out_capacity, key, heavy_cap, mini_cap,
                               stride, sample_threshold)
-    # tpq's lax.cond(ok, splice, fallback) is a host branch (one device sync)
-    if not bool(ok):
-        return union_join(r, s, out_capacity, key=key)
-    # splice: the whole heavy buffer at light.num_rows (ok guarantees
-    # room), written in place into the light output's columns
-    idx = light.num_rows.to(I64) + torch.arange(heavy.capacity,
-                                                device=light.device)
-    cols = {n: c.index_copy_(0, idx, heavy.col(n))
-            for n, c in light.columns.items()}
-    return Table(cols, light.num_rows + heavy.num_rows)
+
+    def splice():
+        # the whole heavy buffer at light.num_rows, written in place into
+        # the light output's columns. `ok` guarantees room; under a graph
+        # this runs whatever `ok` is, so the slots are clamped into the
+        # buffer (no index past it; they differ only where `ok` is false)
+        idx = (light.num_rows.to(I64)
+               + torch.arange(heavy.capacity, device=light.device)
+               ).clamp_max(out_capacity - 1)
+        cols = {n: c.index_copy_(0, idx, heavy.col(n))
+                for n, c in light.columns.items()}
+        return Table(cols, light.num_rows + heavy.num_rows)
+
+    # tpq's lax.cond(ok, splice, fallback) (tpq/ops/skew_join.py:182)
+    return cond(ok, splice, lambda: union_join(r, s, out_capacity, key=key))
 
 
 def skew_path_taken(r: Table, s: Table, out_capacity: int, key: str = "key",

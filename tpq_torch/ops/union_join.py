@@ -20,6 +20,10 @@ hash_join(impl="sorted") and the lane join's fallback.
   5. COMPACTION — one stable sort by validity brings the matches to the
      front of the static out_capacity buffer.
   6. FALLBACK — if the tail exceeds its static caps, full expand+gather.
+     tpq's lax.cond(small_ok, inline, full expand) is jit.cond: one host
+     read eager, none under a graph, where the inline path runs whatever
+     small_ok is (its gathers are clamped) and is discarded when it is
+     false.
 
 Semantics are the oracle's (oracle/main.cc hash_join): inner equi-join
 on `key`, per-key cross product, output columns key, r_<R payloads>,
@@ -32,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from tpq_torch.columnar import Table
+from tpq_torch.jit import cond
 from tpq_torch.ops._expand import expand_segments, last_start
 
 I32 = torch.int32
@@ -171,8 +176,7 @@ def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     tail_rows = (m_s > dmax).sum()
     small_ok = (tail_rows <= tail_rows_cap) & (total64 - covered <= tail_out_cap)
 
-    # tpq's lax.cond(small_ok, ...) is a host branch here (one device sync)
-    if not bool(small_ok):
+    def full_expand():
         # ---- fallback: full expand + gather (adversarial duplicates) ----
         seg, rank, _, vout = expand_segments(m_s.to(I32), out_capacity)
         r_pos = (rs[seg] + rank).clamp_max(u - 1)
@@ -182,44 +186,48 @@ def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
             cols[n] = torch.where(vout, vals_s[n][src], 0)
         return Table(cols, total)
 
-    # ---- inline: candidate (S row, d) for d < dmax, valid iff d < m ----
-    cand_valid = [is_s & (m > d) for d in range(dmax)]
-    # the d-th R row of a run sits at rs + d (< u wherever m > d)
-    r_at = [(rs + d).clamp_max(u - 1) for d in range(dmax)]
+    def inline():
+        # ---- inline: candidate (S row, d) for d < dmax, valid iff d < m ----
+        cand_valid = [is_s & (m > d) for d in range(dmax)]
+        # the d-th R row of a run sits at rs + d (< u wherever m > d)
+        r_at = [(rs + d).clamp_max(u - 1) for d in range(dmax)]
 
-    # ---- small tail: S rows with m > dmax, compacted then expanded. It
-    # runs unconditionally (tpq conds on tail_out > 0): with no tail rows
-    # every slot is invalid and the result is the same ----
-    flag = torch.where(is_s & (m > dmax), 0, 1).to(I32)
-    _, idx_t = torch.sort(flag, stable=True)
-    idx_t = idx_t[:tail_rows_cap]
-    t_valid = torch.arange(tail_rows_cap, device=dev) < tail_rows
-    counts_t = torch.where(t_valid, m[idx_t] - dmax, 0)
-    seg, rank, _, t_vout = expand_segments(counts_t.to(I32), tail_out_cap)
-    t_src = idx_t[seg]
-    t_rpos = (rs[idx_t][seg] + dmax + rank).clamp_max(u - 1)
+        # ---- small tail: S rows with m > dmax, compacted then expanded. It
+        # runs unconditionally (tpq conds on tail_out > 0): with no tail rows
+        # every slot is invalid and the result is the same ----
+        flag = torch.where(is_s & (m > dmax), 0, 1).to(I32)
+        _, idx_t = torch.sort(flag, stable=True)
+        idx_t = idx_t[:tail_rows_cap]
+        t_valid = torch.arange(tail_rows_cap, device=dev) < tail_rows
+        counts_t = torch.where(t_valid, m[idx_t] - dmax, 0)
+        seg, rank, _, t_vout = expand_segments(counts_t.to(I32), tail_out_cap)
+        t_src = idx_t[seg]
+        t_rpos = (rs[idx_t][seg] + dmax + rank).clamp_max(u - 1)
 
-    # ---- assemble dmax*u inline candidates + tail_out_cap tail rows ----
-    valid_all = torch.cat(cand_valid + [t_vout])
-    planes = {key: torch.cat([k_s] * dmax + [k_s[t_src]])}
-    for n in out_names[1:]:
-        if n.startswith("r_"):
-            planes[n] = torch.cat([vals_s[n][r_at[d]] for d in range(dmax)]
-                                  + [vals_s[n][t_rpos]])
-        else:
-            planes[n] = torch.cat([vals_s[n]] * dmax + [vals_s[n][t_src]])
+        # ---- assemble dmax*u inline candidates + tail_out_cap tail rows ----
+        valid_all = torch.cat(cand_valid + [t_vout])
+        planes = {key: torch.cat([k_s] * dmax + [k_s[t_src]])}
+        for n in out_names[1:]:
+            if n.startswith("r_"):
+                planes[n] = torch.cat([vals_s[n][r_at[d]] for d in range(dmax)]
+                                      + [vals_s[n][t_rpos]])
+            else:
+                planes[n] = torch.cat([vals_s[n]] * dmax + [vals_s[n][t_src]])
 
-    # ---- compact: one stable sort by validity ----
-    length = dmax * u + tail_out_cap
-    if length < out_capacity:
-        extra = out_capacity - length
-        valid_all = torch.cat([valid_all,
-                               torch.zeros(extra, dtype=torch.bool, device=dev)])
-        planes = {n: torch.cat([p, torch.zeros(extra, dtype=p.dtype, device=dev)])
-                  for n, p in planes.items()}
-    _, order = torch.sort(torch.where(valid_all, 0, 1).to(I32), stable=True)
-    order = order[:out_capacity]
-    # zero the padding region (rows >= total) for determinism
-    live = torch.arange(out_capacity, device=dev) < total.clamp_max(out_capacity)
-    cols = {n: torch.where(live, planes[n][order], 0) for n in out_names}
-    return Table(cols, total)
+        # ---- compact: one stable sort by validity ----
+        length = dmax * u + tail_out_cap
+        if length < out_capacity:
+            extra = out_capacity - length
+            valid_all = torch.cat([valid_all,
+                                   torch.zeros(extra, dtype=torch.bool, device=dev)])
+            planes = {n: torch.cat([p, torch.zeros(extra, dtype=p.dtype, device=dev)])
+                      for n, p in planes.items()}
+        _, order = torch.sort(torch.where(valid_all, 0, 1).to(I32), stable=True)
+        order = order[:out_capacity]
+        # zero the padding region (rows >= total) for determinism
+        live = torch.arange(out_capacity, device=dev) < total.clamp_max(out_capacity)
+        cols = {n: torch.where(live, planes[n][order], 0) for n in out_names}
+        return Table(cols, total)
+
+    # tpq's lax.cond(small_ok, inline, full expand) (tpq/ops/union_join.py:323)
+    return cond(small_ok, inline, full_expand)

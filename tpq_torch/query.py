@@ -2,15 +2,18 @@
 tpq/query.py full_pipeline and jit_pipeline, and of
 __graft_entry__.entry, the single-card flagship step).
 
-tpq jits the whole pipeline into one XLA program. The port runs the
-operators eagerly, one after another; jit_pipeline returns a plain
-callable, and no torch.compile stands in for the jit.
+tpq jits the whole pipeline into one XLA program (tpq/query.py:62).
+jit_pipeline returns the port's jit of it (tpq_torch/jit.py): on the
+card one CUDA graph per signature, replayed in one launch, with
+filter_value traced as a device scalar; on the CPU the operators run
+eagerly. entry()'s step stays a plain function that jit can capture.
 """
 
 from __future__ import annotations
 
 from tpq_torch import datagen
 from tpq_torch.columnar import Table
+from tpq_torch.jit import jit
 from tpq_torch.ops import filter_table, hash_aggregate, hash_join, merge_join
 from tpq_torch.ops.filter import keep_mask
 
@@ -41,13 +44,14 @@ def full_pipeline(dim: Table, fact: Table, filter_col: str, filter_op: str,
 
 def jit_pipeline(out_capacity: int, filter_col="key", filter_op="lt",
                  algo="hash", join_impl: str = "sorted"):
-    """Returns a (dim, fact, filter_value) -> Table pipeline."""
+    """Returns a jitted (dim, fact, filter_value) -> Table pipeline, as
+    tpq's returns jax.jit(run); `.__wrapped__` is the eager run."""
 
     def run(dim: Table, fact: Table, filter_value) -> Table:
         return full_pipeline(dim, fact, filter_col, filter_op, filter_value,
                              out_capacity, algo, join_impl)
 
-    return run
+    return jit(run)
 
 
 def entry(device="cuda"):
