@@ -31,7 +31,8 @@ Phases, one line each; any failure raises and exits non-zero:
                 equal to numpy's count and the rows byte-equal to the
                 C++ oracle; then the bench
                 runner: the lane path taken, end-to-end ms, rows/s and
-                the per-phase breakdown;
+                the per-phase breakdown, the runner's figure beside
+                bench.profile's end to end;
   5. config3  — the 1M x 1M zipf-probe join, hash_join(impl="skew"), the
                 same way: PAD, PACK, the fused walk/emit, the probe
                 kernel and the hash (11 times) launched, rows byte-equal
@@ -58,8 +59,15 @@ Phases, one line each; any failure raises and exits non-zero:
                 profiled replay launching the same port kernels, by name
                 and count, as a profiled eager call of the same body;
                 end-to-end ms eager and jitted in turns (eager, jitted,
-                jitted, eager); the h2-colliding pair jitted: one rerun,
-                equal to the oracle;
+                jitted, eager); then, by bench.profile in turns (end to
+                end, device busy, idle share): pipeline_100m jitted
+                against eager, after a second call on the same tensors
+                copied nothing in; config 3's shape with impl="lane" (ok
+                false: one rerun, then the fallback path's graph, rows
+                equal to the oracle); the h2-colliding pair over three
+                calls, each equal to the oracle, the second and third
+                replaying the fallback path's graph with no kernel wrapper
+                run and no rerun;
   8. dryrun   — tpq_torch.dist.dryrun_multichip(8) on the card: the
                 chunked+skew, ring+skew and dense+lane+skew variants, each
                 62,545 rows byte-equal to the C++ oracle; then the
@@ -85,12 +93,24 @@ Phases, one line each; any failure raises and exits non-zero:
                 library call; end-to-end ms, fact rows/s, groups, join
                 rows and peak memory;
  10. config4_chunked — scale_bench.bench_pipeline at 100M fact rows in
-                chunks of 2^22 on the device streams: every group exact
-                against numpy, every chunk on the lane path; the dense
-                accumulator's PAD call (its last) timed beside index_copy_;
+                chunks of 2^22 on the device streams: first one eager run
+                off the clock with every PAD, PACK, walk/emit and hash
+                call held byte-equal to its plain version, as many calls
+                as the code makes (SCALE_LAUNCHES); then eager, jitted
+                staged, jitted fused, jitted fused, jitted staged, eager,
+                each with its chunk loop profiled (busy ms, idle share):
+                every group exact against numpy, every chunk on the lane
+                path; the first eager run's timed loop counted (exactly
+                SCALE_LAUNCHES' launches for its chunks and finalize);
+                jitted, one graph a program, no rerun, no capture in the
+                loops, the tensors copied in per chunk, and the replayed
+                loop's port kernels equal to the eager loop's by name and
+                count; the dense accumulator's PAD call (its last) timed
+                beside index_copy_;
  11. config2  — scale_bench.bench_build_sweep, 10M x 100M with 4 payloads
-                in chunks of 2^24: the count exact against numpy's, every
-                chunk on the lane path;
+                in chunks of 2^24, held, then eager, jitted, jitted,
+                eager, checked the same way: the count exact against
+                numpy's, every chunk on the lane path;
  12. entry    — tpq_torch.query.entry() on the card, byte-equal to the
                 oracle's filter | join | aggregate at its shapes;
  13. config5  — dist_125m_8shard, eight shards on the card: the
@@ -115,15 +135,18 @@ Phases, one line each; any failure raises and exits non-zero:
                 shards (134M x 134M) counted (the hash and PACK launched,
                 nothing else), then every size's overflow zero and
                 num_rows equal to a count made without the join, each
-                record naming its one-card local mesh;
+                record naming its one-card local mesh; the counted join's
+                peak memory against the 70 GB limit;
  15. overlap  — the overlap matrix (bench.overlap_bench) at 8 shards of
                 2^24 rows: dense in 1 and 4 chunks and the ring's hops,
-                each variant's num_rows equal to the dense one's.
+                each variant's num_rows equal to the dense one's; the
+                counted joins' peak memory against the 70 GB limit.
 The line before the last is the kernels' JSON record: `launches` is the
-sum over the six paths (config 1, config 3, the radix merge, config 4's
-pipeline, config 5, the scaling bench's join) of the launches in their
-one counted join or pipeline, and `launches_per_join` gives them path by
-path. The last line is {"ok": true, "device": {...}}.
+sum over the paths (config 1, config 3, the radix merge, config 4's
+pipeline, config 4 chunked, config 2, config 5, the scaling bench's join,
+the overlap matrix's two counted joins) of the launches in their one
+counted join, pipeline or timed chunk loop, and `launches_per_join`
+gives them path by path. The last line is {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -179,12 +202,14 @@ def with_wrappers_replaced(run, replace):
     """Runs `run()` with each kernel wrapper of the ported paths (and
     lsd_radix_sort_bits, for its whole-sort check), as the modules of
     the paths name it, replaced by replace(name, wrapper)."""
+    from tpq_torch.bench import scale_bench
     from tpq_torch.dist import mesh
     from tpq_torch.kernels import lane2, lane_table, radix_partition, radix_sort
     from tpq_torch.ops import filter as filter_op
     from tpq_torch.ops import skew_join
 
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
+               (scale_bench, "pad"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
                (lane_table, "probe_walk"), (radix_sort, "split_digit"),
                (radix_sort, "lsd_radix_sort_bits"),
@@ -799,6 +824,10 @@ def true_rows(cfg, r_np, s_np) -> int:
                 * np.bincount(s_np["key"], minlength=cfg.r.nkeys)).sum())
 
 
+# PERF.md's limit on a path's peak device memory, 70 GB of the card's 80
+PEAK_LIMIT = 70_000_000_000
+
+
 def wrappers():
     """The kernel wrappers of the ported paths, by their JSON names."""
     from tpq_torch.hashing import hash_keys
@@ -851,18 +880,29 @@ def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
                 f"{op['rows_per_sec']:.6e} probe rows/s, measured HBM "
                 f"{report['hbm_bw_gbps']:.1f} GB/s, roofline {op['roofline_pct']:.2f}% "
                 f"(byte model {op['model_bytes']} B)")
-    return launches, s_np
+    return launches, s_np, op
 
 
 def config1_phase(dev, cfg, hbm_bw):
-    from tpq_torch.bench.runner import phase_report
+    """Config 1 through run_path, its phases, and the runner's figure
+    beside bench.profile's end to end on the same join (3 warm-ups, 10
+    calls), twice."""
+    from tpq_torch.bench.profile import profile_join
+    from tpq_torch.bench.runner import gen, join_fn, out_capacity_for, phase_report
 
-    launches, _ = run_path("config1", dev, cfg,
-                           {"pad", "pack", "fused_walk_emit", "hash_keys"},
-                           "join_hash_lane", hbm_bw)
+    launches, _, op = run_path("config1", dev, cfg,
+                               {"pad", "pack", "fused_walk_emit", "hash_keys"},
+                               "join_hash_lane", hbm_bw)
     phases = phase_report(cfg, device=dev)
     phase("config1", "phases (ms): " + ", ".join(
         f"{p['phase']} {p['ms']:.4f}" for p in phases))
+    r, s = gen(cfg.r, dev), gen(cfg.s, dev)
+    call = join_fn(cfg, r, s, out_capacity_for(cfg))
+    prof = [profile_join(call, dev)["end_to_end_ms"] for _ in range(2)]
+    call.jitted.clear()
+    phase("config1", f"the runner's jitted figure {op['elapsed_ms']:.4f} ms ({cfg.iters} "
+                     f"calls after the capture and {cfg.warmup} warm-up) beside "
+                     f"bench.profile's end to end {prof[0]:.4f}, {prof[1]:.4f} ms")
     return launches
 
 
@@ -883,7 +923,7 @@ def config3_phase(dev, cfg, hbm_bw):
 
     skew_join._split = recording_split
     try:
-        launches, s_np = run_path(
+        launches, s_np, _ = run_path(
             "config3", dev, cfg,
             {"pad", "pack", "fused_walk_emit", "probe_walk", "hash_keys"},
             "join_hash_skew", hbm_bw)
@@ -911,7 +951,7 @@ def merge_phase(dev, cfg, hbm_bw):
     from tpq_torch.ops.union_join import union_sort_specs
 
     cfg = replace(cfg, join=replace(cfg.join, algo="merge", sort_engine="radix"))
-    launches, _ = run_path("merge", dev, cfg, {"split1"}, "join_merge_radix", hbm_bw,
+    launches, _, _ = run_path("merge", dev, cfg, {"split1"}, "join_merge_radix", hbm_bw,
                            oracle_algo="merge")
     passes = digit_passes(len(union_sort_specs(64)))
     check(launches["split1"] == passes, f"split launched {launches['split1']} times, "
@@ -960,22 +1000,32 @@ def fallback_phase(dev):
                       "(65536 rows)")
 
 
-def port_kernel_launches(fn, dev) -> dict:
-    """{kernel of tpq_torch/csrc: launches} in a profiler trace of one
-    call of fn, by the names bench.profile reads."""
-    from tpq_torch.bench.profile import PORT_KERNELS, device_activities
+def same_port_kernels(eager, replay, dev):
+    """{kernel of tpq_torch/csrc: launches} of an eager call and of a
+    replay, by the names bench.profile reads, from one profiler trace of
+    eager, replay, eager, replay, each call in a range of its own that
+    ends in a synchronize (its device activities start inside it). The
+    second pair is compared: once other traces had run in the process,
+    a trace's first kernel went missing (one hash of an eager config-1
+    join, in three traces running)."""
+    from tpq_torch.bench.profile import device_activities, port_launches
 
+    calls = [("first_eager", eager), ("first_replay", replay), ("eager", eager),
+             ("replay", replay)]
     torch.cuda.synchronize(dev)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
-    counts = {}
-    for _, _, name in device_activities(prof):
-        k = next((k for k in PORT_KERNELS if f"::{k}(" in name), None)
-        if k is not None:
-            counts[k] = counts.get(k, 0) + 1
-    return counts
+        for label, fn in calls:
+            with torch.profiler.record_function(f"chip_smoke:{label}"):
+                fn()
+                torch.cuda.synchronize(dev)
+    ranges = {e.name[len("chip_smoke:"):]: e.time_range for e in prof.events()
+              if e.name.startswith("chip_smoke:")
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    acts = device_activities(prof)
+    return tuple(port_launches([a for a in acts
+                                if ranges[k].start <= a[0] <= ranges[k].end])
+                 for k in ("eager", "replay"))
 
 
 def jit_path(label, dev, call, second, want, want2):
@@ -1003,8 +1053,7 @@ def jit_path(label, dev, call, second, want, want2):
     jitted = call.jitted
     check(len(jitted._graphs) == 1 and jitted.reruns == 0,
           f"{label}: {len(jitted._graphs)} graphs, {jitted.reruns} reruns")
-    eager_k = port_kernel_launches(call.eager, dev)
-    replay_k = port_kernel_launches(call, dev)
+    eager_k, replay_k = same_port_kernels(call.eager, call, dev)
     check(eager_k and eager_k == replay_k,
           f"{label}: replay kernels {replay_k} != eager {eager_k}")
     e1, j1, j2, e2 = (cuda_time(f, dev, 5)[0] * 1e3
@@ -1019,9 +1068,29 @@ def jit_path(label, dev, call, second, want, want2):
     return {"eager_ms": [e1, e2], "jitted_ms": [j1, j2], "port_kernels": replay_k}
 
 
-def jit_phase(dev, cfg1, cfg3, smoke_cfg):
+def turns(label, dev, eager, jitted) -> dict:
+    """bench.profile's end to end, device busy ms and idle share of an
+    eager and a jitted call, in turns (eager, jitted, jitted, eager)."""
+    from tpq_torch.bench.profile import profile_join
+
+    keys = ("end_to_end_ms", "device_busy_ms", "device_idle_share")
+    rows = {"eager": [], "jitted": []}
+    for form in ("eager", "jitted", "jitted", "eager"):
+        p = profile_join(eager if form == "eager" else jitted, dev)
+        rows[form].append({k: p[k] for k in keys})
+    phase("jit", f"{label}, in turns (bench.profile: 3 warm-ups, 10 calls): " + "; ".join(
+        f"{form} " + ", ".join(f"{r['end_to_end_ms']:.4f} ms (busy "
+                               f"{r['device_busy_ms']:.4f}, idle "
+                               f"{r['device_idle_share']:.4f})" for r in rs)
+        for form, rs in rows.items()))
+    return rows
+
+
+def jit_phase(dev, cfg1, cfg3, smoke_cfg, cfg4):
     """Configs 1 and 3, the radix merge and smoke_pipeline jitted as the
-    runner jits them (jit_path each), and a jitted fallback."""
+    runner jits them (jit_path each); config 4 (pipeline_100m) jitted
+    against eager with no copy-in; the false-pred paths (config 3's shape
+    with impl="lane", the h2-colliding pair) jitted against eager."""
     from dataclasses import replace
 
     from tpq_torch import Table
@@ -1031,7 +1100,7 @@ def jit_phase(dev, cfg1, cfg3, smoke_cfg):
     from tpq_torch.ops import hash_join
 
     merge = replace(cfg1, join=replace(cfg1.join, algo="merge", sort_engine="radix"))
-    out = {}
+    out, wants = {}, {}
     for label, cfg, algo in (("config1", cfg1, "hash"), ("config3", cfg3, "hash"),
                              ("merge", merge, "merge")):
         other = replace(cfg, r=replace(cfg.r, seed=cfg.r.seed + 100),
@@ -1039,9 +1108,9 @@ def jit_phase(dev, cfg1, cfg3, smoke_cfg):
         r, s = gen(cfg.r, dev), gen(cfg.s, dev)
         r2, s2 = gen(other.r, dev), gen(other.s, dev)
         call = join_fn(cfg, r, s, out_capacity_for(cfg))
+        wants[label] = oracle_rows(*relations_np(cfg), algo)
         out[label] = jit_path(label, dev, call, lambda: call.jitted(r2, s2),
-                              oracle_rows(*relations_np(cfg), algo),
-                              oracle_rows(*relations_np(other), algo))
+                              wants[label], oracle_rows(*relations_np(other), algo))
         del r, s, r2, s2, call
         torch.cuda.empty_cache()
 
@@ -1060,18 +1129,76 @@ def jit_phase(dev, cfg1, cfg3, smoke_cfg):
         f"smoke_pipeline (filter values {v}, {v2})", dev, call,
         lambda: call.jitted(dim2, fact2, v), oracle_pipeline(dim_np, fact_np, v),
         oracle_pipeline(dim2_np, fact2_np, v))
+    del dim, fact, dim2, fact2, call
+    torch.cuda.empty_cache()
+
+    # config 4: the graph reads the 3.2 GB fact table in place
+    r, s = gen(cfg4.r, dev), gen(cfg4.s, dev)
+    call = join_fn(cfg4, r, s, out_capacity_for(cfg4))
+    call()
+    call()
+    jitted = call.jitted
+    check(jitted.copies == 0 and jitted.captures == 1 and jitted.reruns == 0,
+          f"config 4: two calls on the same tensors made {jitted.copies} copies, "
+          f"{jitted.captures} captures, {jitted.reruns} reruns")
+    phase("jit", "config 4 (pipeline_100m): a second call on the same tensors copied "
+                 "nothing in (0 copies, 1 capture, 0 reruns)")
+    out["config4"] = turns("config 4 (pipeline_100m)", dev, call.eager, call)
+    check(jitted.copies == 0 and jitted.reruns == 0,
+          f"config 4: {jitted.copies} copies, {jitted.reruns} reruns in the turns")
+    jitted.clear()
+    del r, s, call, jitted
+    torch.cuda.empty_cache()
+
+    # a pred that stays false: the lane join on config 3's zipf probes
+    lane3 = replace(cfg3, join=replace(cfg3.join, impl="lane"))
+    r, s = gen(lane3.r, dev), gen(lane3.s, dev)
+    call = join_fn(lane3, r, s, out_capacity_for(lane3))
+    jitted = call.jitted
+    for n in (1, 2):
+        check(tables_equal(canonicalize(call()), wants["config3"]),
+              f"config 3 shape, impl lane, jitted call {n} != oracle")
+    check(jitted.reruns == 1 and len(jitted._graphs) == 2,
+          f"config 3 shape, impl lane: {jitted.reruns} reruns, "
+          f"{len(jitted._graphs)} graphs after two calls")
+    path = jitted._last[next(iter(jitted._last))]
+    phase("jit", f"config 3's shape with impl lane: ok false; the first call reran "
+                 f"eagerly (path {path}), the second replayed that path's graph; both "
+                 f"== the C++ oracle")
+    out["config3_lane"] = turns("config 3's shape, impl lane (_FELL_BACK_TO_SORTED)",
+                                dev, call.eager, call)
+    check(jitted.reruns == 1, f"config 3 shape, impl lane: {jitted.reruns} reruns")
+    jitted.clear()
+    del r, s, call, jitted
+    torch.cuda.empty_cache()
 
     k1, k2 = 7302945295039616556, 3449075177175606448  # same (bucket, h2)
     r_np = {"key": np.array([k1, k2, 5, 6, 7], dtype=np.int64),
             "p0": np.arange(5, dtype=np.int64)}
     s_np = {"key": np.array([k1, k2, k1, 6], dtype=np.int64),
             "p0": np.arange(4, dtype=np.int64) * 10}
+    want = oracle_rows(r_np, s_np)
+    r, s = (Table.from_numpy(x, device=dev) for x in (r_np, s_np))
+    body = functools.partial(hash_join, r, s, 1 << 8, impl="lane")
     lane = jit(lambda r, s: hash_join(r, s, 1 << 8, impl="lane"))
-    got = lane(*(Table.from_numpy(x, device=dev) for x in (r_np, s_np)))
-    check(lane.reruns == 1 and tables_equal(canonicalize(got), oracle_rows(r_np, s_np)),
-          f"jitted h2 fallback: {lane.reruns} reruns, or rows != oracle")
-    phase("jit", "h2-colliding pair jitted: the replay's ok false, 1 rerun, rows == "
-                 "the C++ oracle's")
+    check(tables_equal(canonicalize(lane(r, s)), want) and lane.reruns == 1,
+          f"jitted h2 pair, call 1: {lane.reruns} reruns, or rows != oracle")
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    for n in (2, 3):
+        check(tables_equal(canonicalize(lane(r, s)), want),
+              f"jitted h2 pair, call {n}: rows != oracle")
+    launched = {k: w.launches for k, w in ws.items() if w.launches}
+    check(lane.reruns == 1 and len(lane._graphs) == 2 and not launched,
+          f"jitted h2 pair: {lane.reruns} reruns, {len(lane._graphs)} graphs, eager "
+          f"launches {launched} in calls 2 and 3")
+    phase("jit", "h2-colliding pair jitted, three calls == the C++ oracle's: the first "
+                 "reran eagerly (1 rerun), the second and third replayed the fallback "
+                 "path's graph (no kernel wrapper ran, no rerun)")
+    out["h2_pair"] = turns("h2-colliding pair", dev, body, lambda: lane(r, s))
+    check(lane.reruns == 1, f"jitted h2 pair: {lane.reruns} reruns in the turns")
+    lane.clear()
     return out
 
 
@@ -1260,49 +1387,181 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     return launches
 
 
-def config4_chunked_phase(dev, K):
-    """scale_bench.bench_pipeline at 100M fact rows; the accumulator's
-    PAD call of its last chunk timed."""
+# Launches of the scale benches' programs, from the code: the lane build
+# hashes twice (bucket, h2) and PADs once; a chunk's probe hashes twice
+# (bucket, lane of the padded keys), PADs its layout, walks and emits
+# once, then PACKs and PADs the lane tail; config 4's chunk also PACKs
+# its aggregate's groups and PADs them into the accumulator, and its
+# finalize PACKs the groups once. A bench run builds twice (the warm-up's
+# tables, the timed build), runs min(2, nchunks) warm-up chunks before
+# its loop, and config 4 finalizes twice in the warm-up and once a loop.
+LANE_BUILD = {"hash_keys": 2, "pad": 1}
+LANE_CHUNK = {"hash_keys": 2, "pad": 2, "pack": 1, "fused_walk_emit": 1}
+SCALE_LAUNCHES = {
+    "config4_chunked": {"build": LANE_BUILD, "chunk": {**LANE_CHUNK, "pad": 3, "pack": 2},
+                        "finalize": {"pack": 1}, "warm_finalizes": 2},
+    "config2": {"build": LANE_BUILD, "chunk": LANE_CHUNK, "finalize": {},
+                "warm_finalizes": 0},
+}
+
+
+def scale_launches(label, nchunks, whole_run) -> dict:
+    """The launches SCALE_LAUNCHES gives for one timed loop of `nchunks`
+    chunks, or (`whole_run`) for an unprofiled bench run."""
+    c = SCALE_LAUNCHES[label]
+    builds, chunks, fins = 0, nchunks, 1 if c["finalize"] else 0
+    if whole_run:
+        builds, chunks, fins = 2, nchunks + min(2, nchunks), fins + c["warm_finalizes"]
+    return {k: builds * c["build"].get(k, 0) + chunks * c["chunk"].get(k, 0)
+            + fins * c["finalize"].get(k, 0) for k in ("pad", "pack", "fused_walk_emit",
+                                                       "hash_keys")}
+
+
+def held_scale_run(label, dev, bench):
+    """One eager bench run, off the clock and unprofiled, with every
+    PAD, PACK, walk/emit and hash call held against its plain version
+    (hold_kernel_calls): each byte-equal, as many calls as the code makes."""
+    reps = []
+    t0 = time.perf_counter()
+    held, _, walk_ms = hold_kernel_calls(
+        lambda: reps.append(bench(device=dev, eager=True, log=lambda _: None)), keep=())
+    want = scale_launches(label, reps[0]["nchunks"], whole_run=True)
+    calls = {k: n for k, (n, _) in held.items()}
+    check(calls == want, f"{label}: calls held {calls}, the code makes {want}")
+    check(all(err == 0 for _, err in held.values()),
+          f"{label}: a kernel differs from its plain version at the chunk shapes: {held}")
+    phase(label, f"held eager run: every call byte-equal to its plain version "
+                 f"({calls}); walk/emit device ms a chunk {min(walk_ms):.4f}-"
+                 f"{max(walk_ms):.4f} ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+
+def scale_forms(label, dev, bench, forms):
+    """Runs a scale bench held (held_scale_run), then in each form of
+    `forms` ((name, keyword arguments), in order), with its timed loop
+    profiled. The first eager run's timed loop is counted (every launch
+    count zeroed just before it and read just after: exactly
+    scale_launches'). Every jitted run: one graph a program, no rerun, no
+    capture in its loops, and its loop's port kernels equal to the eager
+    loop's by name and count. Returns (reports by form, launches)."""
     from tpq_torch.bench import scale_bench
 
-    calls, pad = [], scale_bench.pad
+    held_scale_run(label, dev, bench)
+    ws, timed_loop = wrappers(), scale_bench._timed_loop
+    reports, launches, eager_kernels, counts = {}, None, None, {}
 
-    def last_call(*args):
-        calls[:] = [args]
-        return pad(*args)
+    def counted_loop(loop, *args):
+        def counted():
+            if counts:  # the profiled run of the loop
+                return loop()
+            for w in ws.values():
+                w.launches = 0
+            res = loop()
+            counts.update({k: w.launches for k, w in ws.items()})
+            return res
+        return timed_loop(counted, *args)
 
-    scale_bench.pad = last_call
-    try:
-        rep = scale_bench.bench_pipeline(device=dev, log=lambda _: None)
-    finally:
-        scale_bench.pad = pad
+    for name, kw in forms:
+        counting = kw.get("eager") and launches is None
+        if counting:
+            scale_bench._timed_loop = counted_loop
+        try:
+            rep = bench(device=dev, profile=True, log=lambda _: None, **kw)
+        finally:
+            scale_bench._timed_loop = timed_loop
+        if counting:
+            launches = dict(counts)
+            got = {k: v for k, v in launches.items() if v}
+            want = scale_launches(label, rep["nchunks"], whole_run=False)
+            check(got == want, f"{label}: the timed loop launched {got}, the code "
+                               f"makes {want}")
+            phase(label, f"the first eager run's timed loop ({rep['nchunks']} chunks): "
+                         f"launches {got}, as the code makes")
+        check(rep["lane_path_taken_all_chunks"], f"{label} {name}: a chunk fell back")
+        if kw.get("eager"):
+            eager_kernels = eager_kernels or rep["port_kernels"]
+            what = "eager"
+        else:
+            bad = {n: st for n, st in rep["jit"].items()
+                   if st["graphs"] != 1 or st["reruns"] != 0}
+            check(not bad, f"{label} {name}: programs not at one graph and no rerun: {bad}")
+            check(rep["loop_captures"] == 0,
+                  f"{label} {name}: {rep['loop_captures']} graphs captured in its loops")
+            check(rep["port_kernels"] == eager_kernels,
+                  f"{label} {name}: the replayed loop's port kernels "
+                  f"{rep['port_kernels']} != the eager loop's {eager_kernels}")
+            what = (f"one graph a program, 0 reruns, 0 captures in the loops, loop's "
+                    f"port kernels == eager's; "
+                    f"{rep['copies_per_chunk']:.2f} tensors "
+                    f"({rep['copied_bytes_per_chunk']:.0f} B) copied in per chunk; "
+                    f"captures " + ", ".join(f"{n} {st['captures']}"
+                                             for n, st in rep["jit"].items()))
+        phase(label, f"{name}: {rep['elapsed_ms']:.4f} ms (build {rep['build_ms']:.4f}, "
+                     f"loop {rep['loop_ms']:.4f}, loop busy {rep['loop_busy_ms']:.4f}, "
+                     f"idle {rep['loop_idle_share']:.4f}); {what}; loop port kernels "
+                     f"{rep['port_kernels']}")
+        reports.setdefault(name, []).append(rep)
+        torch.cuda.empty_cache()
+    return reports, launches
+
+
+def config4_chunked_phase(dev, K):
+    """scale_bench.bench_pipeline at 100M fact rows, eager and jitted
+    (staged and fused) in turns; the accumulator's PAD call of the last
+    eager run's last chunk timed. Returns the counted run's launches."""
+    from tpq_torch.bench import scale_bench
+
+    calls = []
+
+    def bench(**kw):
+        pad = scale_bench.pad  # held, in the held run
+
+        def last_call(*args):
+            calls[:] = [args]
+            return pad(*args)
+
+        scale_bench.pad = last_call
+        try:
+            return scale_bench.bench_pipeline(**kw)
+        finally:
+            scale_bench.pad = pad
+
+    forms = [("eager", {"eager": True}), ("jit_staged", {}),
+             ("jit_fused", {"staged": False}), ("jit_fused", {"staged": False}),
+             ("jit_staged", {}), ("eager", {"eager": True})]
+    reps, launches = scale_forms("config4_chunked", dev, bench, forms)
+    rep = reps["eager"][0]
     check(rep["groups_exact"], "config 4 chunked: groups differ from numpy's")
-    check(rep["lane_path_taken_all_chunks"], "config 4 chunked: a chunk fell back")
     phase("config4_chunked", f"{rep['n_fact']} fact rows in {rep['nchunks']} chunks of "
                              f"{rep['chunk_rows']}: {rep['groups']} groups exact against "
-                             f"numpy, {rep['join_rows']} join rows, lane path taken in "
-                             f"every chunk; {rep['elapsed_ms']:.4f} ms (build "
-                             f"{rep['build_ms']:.4f}), {rep['fact_rows_per_sec']:.6e} fact "
-                             f"rows/s, roofline {rep['roofline_pct']:.2f}%")
+                             f"numpy in every form, {rep['join_rows']} join rows, lane "
+                             f"path taken in every chunk; eager "
+                             f"{rep['fact_rows_per_sec']:.6e} fact rows/s, roofline "
+                             f"{rep['roofline_pct']:.2f}%")
     K.rec["pad"]["config4_accumulator"] = pad_phase(
         K, calls[0], "config-4 chunked accumulator", record=False)
     del calls
     torch.cuda.empty_cache()
+    return launches
 
 
 def config2_phase(dev):
+    """scale_bench.bench_build_sweep, eager and jitted in turns. Returns
+    the counted eager run's launches."""
     from tpq_torch.bench.scale_bench import bench_build_sweep
 
-    rep = bench_build_sweep(device=dev, log=lambda _: None)
+    forms = [("eager", {"eager": True}), ("jit", {}), ("jit", {}),
+             ("eager", {"eager": True})]
+    reps, launches = scale_forms("config2", dev, bench_build_sweep, forms)
+    rep = reps["eager"][0]
     check(rep["count_exact"], "config 2: the count differs from numpy's")
-    check(rep["lane_path_taken_all_chunks"], "config 2: a chunk fell back")
     phase("config2", f"{rep['n_build']} x {rep['n_probe']} rows, {rep['payloads']} "
                      f"payloads, {rep['nchunks']} chunks of {rep['chunk_rows']}: "
-                     f"{rep['out_rows']} join rows == numpy's count, lane path taken in "
-                     f"every chunk; {rep['elapsed_ms']:.4f} ms (build "
-                     f"{rep['build_ms']:.4f}), {rep['probe_rows_per_sec']:.6e} probe "
-                     f"rows/s, roofline {rep['roofline_pct']:.2f}%")
+                     f"{rep['out_rows']} join rows == numpy's count in every form, lane "
+                     f"path taken in every chunk; eager {rep['probe_rows_per_sec']:.6e} "
+                     f"probe rows/s, roofline {rep['roofline_pct']:.2f}%")
     torch.cuda.empty_cache()
+    return launches
 
 
 def entry_phase(dev):
@@ -1469,7 +1728,8 @@ def counted_held_join(dev, label, mesh, join, want_rows, expect):
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: w.launches for k, w in ws.items()}
-    phase(label, f"launches {launches}; peak memory {peak} B")
+    phase(label, f"launches {launches}; peak memory {peak} B, "
+                 f"{'under' if peak < PEAK_LIMIT else 'OVER'} the {PEAK_LIMIT} B limit")
     check(all(v == expect.get(k, 0) for k, v in launches.items()),
           f"expected launches {expect}: {launches}")
     got = joined_rows(out, mesh)
@@ -1604,12 +1864,13 @@ def main():
                 "merge": merge_phase(dev, cfg1, hbm_bw),
                 "config4": config4_phase(dev, K, PRESETS["smoke_pipeline"],
                                          PRESETS["pipeline_100m"], hbm_bw)}
-    config4_chunked_phase(dev, K)
-    config2_phase(dev)
+    per_join["config4_chunked"] = config4_chunked_phase(dev, K)
+    per_join["config2"] = config2_phase(dev)
     entry_phase(dev)
     fallback_phase(dev)
     phase("jit", "summary " + json.dumps(jit_phase(dev, cfg1, cfg3,
-                                                   PRESETS["smoke_pipeline"])))
+                                                   PRESETS["smoke_pipeline"],
+                                                   PRESETS["pipeline_100m"])))
     dryrun_phase(dev)
     per_join["dist"] = config5_phase(dev, K, PRESETS["dist_125m_8shard"])
     per_join["scaling"] = scaling_phase(dev)

@@ -547,11 +547,11 @@ def test_aggregate_pack_on_card_matches_plain(dev, monkeypatch):
 
 
 def test_accumulator_pad_on_card_matches_plain(dev, monkeypatch):
-    """The chunked config-4 bench on the card at 600,000 fact rows in
-    chunks of 2^18: each chunk's groups PADded into the dense accumulator
-    (196,608 aggregate rows into 131,072 slots) byte-equal to the plain
-    version, every group exact against numpy, every chunk on the lane
-    path."""
+    """The chunked config-4 bench on the card, eager, at 600,000 fact
+    rows in chunks of 2^18: each chunk's groups PADded into the dense
+    accumulator (196,608 aggregate rows into 131,072 slots) byte-equal to
+    the plain version, every group exact against numpy, every chunk on
+    the lane path."""
     from tpq_torch.bench import scale_bench
 
     calls = []
@@ -562,9 +562,11 @@ def test_accumulator_pad_on_card_matches_plain(dev, monkeypatch):
 
     monkeypatch.setattr(scale_bench, "pad", rec)
     rep = scale_bench.bench_pipeline(n_dim=1 << 18, n_fact=600_000, chunk_rows=1 << 18,
-                                     filter_value=1 << 17, device=dev, log=lambda _: None)
+                                     filter_value=1 << 17, device=dev, eager=True,
+                                     log=lambda _: None)
     assert rep["groups_exact"] and rep["lane_path_taken_all_chunks"]
-    assert len(calls) == 1 + rep["nchunks"]  # the warm-up chunk, then each chunk
+    # the warm-up's chunks, then each chunk of the loop
+    assert len(calls) == min(2, rep["nchunks"]) + rep["nchunks"]
     for args in calls:
         assert args[1].shape[0] == 196_608 and args[3] == 1 << 17
         got, want = pad(*args), pad_ref(*args)
@@ -695,9 +697,11 @@ def test_jitted_pipeline_replays_equal_eager(dev, algo, impl):
 
 
 def test_jitted_fallback_reruns_exact(dev):
-    """tests/test_kernels.py:173's h2-colliding pair: the replay's `ok`
-    is false, so each call reruns eagerly and answers with the sorted
-    join's rows."""
+    """tests/test_kernels.py:173's h2-colliding pair, three calls: the
+    first replay's `ok` is false, so the first call reruns eagerly and
+    captures the graph of the path it took (the fallback); the second
+    and third replay that graph alone (no kernel wrapper runs, no rerun).
+    Every call answers with the sorted join's rows."""
     k1, k2 = 7302945295039616556, 3449075177175606448
     r = Table.from_numpy({"key": np.array([k1, k2, 5, 6, 7], dtype=np.int64),
                           "p0": np.arange(5, dtype=np.int64)}, device=dev)
@@ -705,10 +709,77 @@ def test_jitted_fallback_reruns_exact(dev):
                           "p0": np.arange(4, dtype=np.int64) * 10}, device=dev)
     jitted = jit(lambda r, s: hash_join(r, s, 1 << 8, impl="lane"))
     want = canonicalize(hash_join(r, s, 1 << 8, impl="sorted"))
-    for calls in (1, 2):
+    wrappers = (pad, pack, fused_walk_emit, hash_keys)
+    for call in (1, 2, 3):
+        if call == 2:
+            launched = [w.launches for w in wrappers]
         got = jitted(r, s)
-        assert jitted.reruns == calls and int(got.num_rows) == 4
+        assert jitted.reruns == 1 and int(got.num_rows) == 4
         assert tables_equal(canonicalize(got), want)
+    assert [w.launches for w in wrappers] == launched
+    assert len(jitted._graphs) == 2 and jitted.captures == 2 and jitted.copies == 0
+
+
+def _lane_join_inputs(dev, seed):
+    r = Table.from_numpy(datagen.gen_relation_np(60_000, 65_536, payloads=1, seed=seed),
+                         device=dev)
+    s = Table.from_numpy(datagen.gen_relation_np(60_000, 65_536, payloads=1,
+                                                 seed=seed + 100), device=dev)
+    return r, s
+
+
+def _lane(r, s):
+    return hash_join(r, s, 1 << 18, impl="lane")
+
+
+def test_jit_repeated_call_copies_nothing(dev):
+    """Calls on the same tensors replay one graph over the caller's
+    tensors: no copy in, one capture, the eager rows every time, also
+    with a traced number that changes from call to call."""
+    r, s = _lane_join_inputs(dev, 31)
+    jitted = jit(_lane)
+    want = canonicalize(_lane(r, s))
+    for _ in range(3):
+        assert tables_equal(canonicalize(jitted(r, s)), want)
+    assert (jitted.copies, jitted.captures, jitted.reruns) == (0, 1, 0)
+    # a traced number fills the graph's own scalar: no copy, no capture
+    pipe = jit_pipeline(1 << 18, join_impl="lane")
+    for value in (30_000, 10_000, 50_000):
+        got, want = pipe(r, s, value), pipe.__wrapped__(r, s, value)
+        assert tables_equal(canonicalize(got), canonicalize(want))
+    assert (pipe.copies, pipe.captures, pipe.reruns) == (0, 1, 0)
+
+
+def test_jit_reads_a_tensor_changed_in_place(dev):
+    """The graph reads its inputs in place: after the caller overwrites
+    the probe keys and a build payload in place, the next call gives the
+    eager rows of the new contents, with no copy and no new capture."""
+    r, s = _lane_join_inputs(dev, 32)
+    r2, s2 = _lane_join_inputs(dev, 33)
+    jitted = jit(_lane)
+    first = jitted(r, s)
+    s.columns["key"].copy_(s2.columns["key"])
+    r.columns["p0"].copy_(r2.columns["p0"])
+    got, want = jitted(r, s), _lane(r, s)
+    assert tables_equal(canonicalize(got), canonicalize(want))
+    assert not tables_equal(canonicalize(first), canonicalize(want))
+    assert (jitted.copies, jitted.captures) == (0, 1)
+
+
+def test_jit_new_addresses_exact_and_callers_unchanged(dev):
+    """Calls at new addresses, and the same tensors in the other order,
+    give the eager rows; the graph is captured again with the moved
+    positions in buffers of its own, so later calls copy in, and no
+    caller's tensor is written."""
+    r, s = _lane_join_inputs(dev, 34)
+    r2, s2 = _lane_join_inputs(dev, 35)
+    before = [c.clone() for t in (r, s, r2, s2) for c in (*t.columns.values(), t.num_rows)]
+    jitted = jit(_lane)
+    for a, b in ((r, s), (r2, s2), (r, s), (s, r), (s2, r2)):
+        assert tables_equal(canonicalize(jitted(a, b)), canonicalize(_lane(a, b)))
+    after = [c for t in (r, s, r2, s2) for c in (*t.columns.values(), t.num_rows)]
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert len(jitted._graphs) == 1 and jitted.captures == 2 and jitted.copies > 0
 
 
 def test_graph_of_pack_and_walk_emit_replays_exact(dev):
@@ -716,9 +787,9 @@ def test_graph_of_pack_and_walk_emit_replays_exact(dev):
     replayed on four sets of inputs: every output byte-equal to the plain
     versions at every replay, and every launch of every replay takes the
     next look-back epoch on the card (4 after the warm-up, 4 more a
-    replay). An epoch fixed at capture would let a replay's look-back
-    read the last replay's statuses as its own wherever a predecessor
-    has not yet published."""
+    replay; the second inputs' new capture starts anew). An epoch fixed
+    at capture would let a replay's look-back read the last replay's
+    statuses as its own wherever a predecessor has not yet published."""
     cap = 1 << 17
 
     def body(cols, occ_a, occ_b, tables, qk, lane, qocc_a, qocc_b, spay):
@@ -759,8 +830,11 @@ def test_graph_of_pack_and_walk_emit_replays_exact(dev):
                 _eq(a[:m], b[:m])
         (graph,) = jitted._graphs.values()
         epochs.append((int(graph.state[0]) >> 32) & 0xFFFFFFFF)
-    assert epochs == [8, 12, 16, 20]
-    assert len(jitted._graphs) == 1 and jitted.reruns == 0
+    # the second inputs lie elsewhere: the graph is captured again (its
+    # warm-up and its new state start the epochs anew), and from then on
+    # the inputs are copied into its own buffers
+    assert epochs == [8, 8, 12, 16]
+    assert len(jitted._graphs) == 1 and jitted.reruns == 0 and jitted.captures == 2
 
 
 @pytest.mark.parametrize("kernel", ["pack", "walk_emit"])

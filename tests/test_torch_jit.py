@@ -20,7 +20,8 @@ from torch_host_reads import host_reads
 
 from tpq_torch import Table, colio, datagen
 from tpq_torch.columnar import canonicalize
-from tpq_torch.jit import _flatten, _unflatten, cond, deferred, jit
+from tpq_torch.jit import (_addresses, _flatten, _Graph, _unflatten, cond, decided,
+                           deferred, jit)
 from tpq_torch.kernels.lane2 import build_lane2_tables, plan_lane2
 from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.query import full_pipeline, jit_pipeline
@@ -191,3 +192,73 @@ def test_signature_traces_numbers_and_keeps_statics():
     assert (v, op) == (512, "lt") and r2.columns["key"] is r.columns["key"]
     assert tables2.plan == tables.plan and tables2.key is tables.key
     assert dataclasses.astuple(tables2.plan) == dataclasses.astuple(tables.plan)
+
+
+@pytest.mark.parametrize("case", list(FALSE_CASES))
+def test_body_follows_the_decided_path(case):
+    """The path an eager run takes (`decided`: the lane or skew join's
+    false `ok`, then the union engine's own cond) traced again under the
+    capture flag along that path, as jit captures a rerun's path: each
+    cond takes its recorded branch and records a pred that agrees with
+    it, no host read is made, and the rows are the eager join's."""
+    r_np, s_np, cap, impl = FALSE_CASES[case]()
+    r, s = _t(r_np), _t(s_np)
+    with decided() as path:
+        want = hash_join(r, s, cap, impl=impl)
+    assert path and not all(path)
+    with deferred(tuple(path)) as preds, host_reads("raise"):
+        got = hash_join(r, s, cap, impl=impl)
+    assert [bool(p) for p in preds] == path
+    assert int(got.num_rows) == int(want.num_rows) > 0
+    assert_tables_equal(canonicalize(got), canonicalize(want), case)
+
+
+def test_cond_follows_a_path_and_decided_records_it():
+    """Under a path, the k-th cond takes the path's branch whatever its
+    pred and records the pred; a cond past the path raises. Under
+    `decided`, cond reads its pred and records the branch it took."""
+    then_fn, else_fn = (lambda: 1), (lambda: 2)
+    with deferred((False, True)) as preds:
+        assert cond(torch.tensor(True), then_fn, else_fn) == 2
+        assert cond(torch.tensor(False), then_fn, else_fn) == 1
+        with pytest.raises(RuntimeError):
+            cond(torch.tensor(True), then_fn, else_fn)
+    assert [bool(p) for p in preds] == [True, False]
+    with decided() as taken:
+        assert cond(torch.tensor(False), then_fn, else_fn) == 2
+        assert cond(torch.tensor(True), then_fn, else_fn) == 1
+    assert taken == [False, True]
+
+
+def test_addresses_key_argument_positions():
+    """A graph replays over the tensors at the places it was captured
+    with: the same tensors in another order form one signature but
+    another pointer key, the same call the same key; a view of the same
+    data with other strides is another key; a number has none, so a
+    graph finds moved only its pinned tensors' positions. Dicts flatten
+    by their keys and rebuild from their leaves."""
+    a = _t(datagen.gen_relation_np(1000, 1000, payloads=1, seed=1))
+    b = _t(datagen.gen_relation_np(1000, 1000, payloads=1, seed=2))
+
+    def key(*args):
+        leaves = []
+        return tuple(_flatten(x, leaves, top=True) for x in args), _addresses(leaves)
+
+    (spec_ab, at_ab), (spec_ba, at_ba) = key(a, b, 7), key(b, a, 7)
+    assert spec_ab == spec_ba and at_ab != at_ba
+    assert key(a, b, 9) == (spec_ab, at_ab) and at_ab[-1] is None
+    t = torch.zeros(4, 4)
+    assert _addresses([t]) != _addresses([t.t()])
+    assert _addresses([t]) == _addresses([t.view(4, 4)])
+    graph = _Graph.__new__(_Graph)  # its positions: a pinned tensor, a number
+    graph.inputs, graph.owned = [t, torch.zeros((), dtype=torch.int64)], frozenset()
+    assert graph.moved([t.view(4, 4), 5]) == set()
+    assert graph.moved([t.clone(), 6]) == {0}
+    graph.owned = frozenset({0})
+    assert graph.moved([t.clone(), 6]) == set()
+    d = {"x": a.col("key"), "y": [b.col("p0"), 3]}
+    leaves = []
+    spec = _flatten(d, leaves)
+    assert spec != _flatten({"y": d["y"], "x": d["x"]}, [])
+    back = _unflatten(spec, iter(leaves))
+    assert list(back) == ["x", "y"] and back["x"] is d["x"] and back["y"][1] == 3

@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_host_reads import host_reads
+
 from tpq_torch import datagen
-from tpq_torch.bench import scale_bench
+from tpq_torch.bench import runner, scale_bench
 from tpq_torch.bench.runner import gen
 from tpq_torch.columnar import canonicalize
 from tpq_torch.config import RelationSpec
+from tpq_torch.jit import deferred
 from tpq_torch.query import full_pipeline
 
 from conftest import assert_tables_equal
@@ -134,3 +137,79 @@ def test_consume_reads_every_column():
         pad[name] = cols[name].clone()
         pad[name][6] += 1
         assert scale_bench._consume(Table(pad, 5)) == base, name
+
+
+SMOKE_PIPELINE = dict(n_dim=4096, n_fact=50_000, chunk_rows=1 << 14, filter_value=2048,
+                      device="cpu", log=lambda _: None)
+SMOKE_SWEEP = dict(n_build=5000, n_probe=40_000, payloads=4, chunk_rows=1 << 14,
+                   device="cpu", log=lambda _: None)
+
+
+@pytest.mark.parametrize("staged,eager", [(False, False), (True, True), (False, True)])
+def test_bench_pipeline_fused_and_eager_equal_staged(staged, eager):
+    """The fused chunk program (tpq's --fused) and the eager bodies give
+    the staged programs' groups: each run is held exact to numpy's truth
+    by the bench, and the reports agree; a jitted run reports its
+    programs (on the CPU jit(fn) is fn: no graph, no copy)."""
+    want = scale_bench.bench_pipeline(**SMOKE_PIPELINE)
+    rep = scale_bench.bench_pipeline(staged=staged, eager=eager, **SMOKE_PIPELINE)
+    assert rep["groups_exact"] and rep["lane_path_taken_all_chunks"]
+    assert (rep["groups"], rep["join_rows"]) == (want["groups"], want["join_rows"])
+    assert (rep["staged"], rep["eager"]) == (staged, eager)
+    chunk_programs = {"probe_core", "agg_core"} if staged else {"chunk_step"}
+    if eager:
+        assert rep["jit"] is None
+    else:
+        assert set(rep["jit"]) == {"gen_dim", "build", "gen_chunk", "finalize",
+                                   *chunk_programs}
+        assert all(st["graphs"] == st["copies"] == 0 for st in rep["jit"].values())
+        assert rep["copies_per_chunk"] == rep["loop_captures"] == 0
+    assert set(want["jit"]) == {"gen_dim", "build", "gen_chunk", "finalize",
+                                "probe_core", "agg_core"}
+
+
+@pytest.mark.parametrize("which", ["pipeline_staged", "pipeline_fused", "sweep"])
+def test_scale_programs_make_no_host_read(monkeypatch, which):
+    """Every program the benches jit runs under the capture flag with
+    every host read raising and records no cond, its traced numbers (the
+    chunk's row offset and row count) reaching it as 0-d tensors, as a
+    graph's scalars reach it on the card; the run stays exact."""
+    ran = []
+
+    def capturable(fn):
+        def call(*args):
+            args = tuple(torch.tensor(a) if isinstance(a, int) and not isinstance(a, bool)
+                         else a for a in args)
+            with deferred() as preds, host_reads("raise"):
+                out = fn(*args)
+            assert not preds
+            ran.append(fn)
+            return out
+        return call
+
+    monkeypatch.setattr(scale_bench, "jit", capturable)
+    if which == "sweep":
+        rep = scale_bench.bench_build_sweep(**SMOKE_SWEEP)
+        assert rep["count_exact"] and len(set(ran)) == 4
+    else:
+        rep = scale_bench.bench_pipeline(staged=which == "pipeline_staged",
+                                         **SMOKE_PIPELINE)
+        assert rep["groups_exact"]
+        assert len(set(ran)) == (6 if which == "pipeline_staged" else 5)
+    assert rep["lane_path_taken_all_chunks"]
+
+
+def test_cli_fused_reaches_staged_false(monkeypatch):
+    """The CLI's --fused runs the pipeline with staged=False, --eager the
+    bodies without graphs; the defaults are staged and jitted."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(runner, "card_info", lambda: "card")
+    monkeypatch.setattr(scale_bench, "bench_pipeline", lambda **kw: seen.append(kw) or {})
+    monkeypatch.setattr(scale_bench, "bench_build_sweep",
+                        lambda **kw: seen.append(kw) or {})
+    for argv in (["pipeline", "--fused"], ["pipeline"], ["pipeline", "--eager"],
+                 ["sweep", "--eager"]):
+        scale_bench.main(argv)
+    assert [(kw.get("staged"), kw["eager"]) for kw in seen] == [
+        (False, False), (True, False), (True, True), (None, True)]

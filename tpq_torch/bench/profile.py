@@ -52,6 +52,21 @@ def device_activities(prof) -> list[tuple[float, float, str]]:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def port_kernel(name: str):
+    """The kernel of tpq_torch/csrc a trace's activity name is, or None."""
+    return next((k for k in PORT_KERNELS if f"::{k}(" in name), None)
+
+
+def port_launches(acts) -> dict:
+    """{kernel of tpq_torch/csrc: launches} among the activities."""
+    counts: dict = {}
+    for _, _, name in acts:
+        k = port_kernel(name)
+        if k is not None:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
 def busy_us(acts) -> float:
     """Total length of the union of the activity intervals."""
     total, end = 0.0, float("-inf")
@@ -83,7 +98,7 @@ def profile_join(fn, device) -> dict:
     items = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     port = {}
     for name, (c, t) in items:
-        k = next((k for k in PORT_KERNELS if f"::{k}(" in name), None)
+        k = port_kernel(name)
         if k is not None:
             rec = port.setdefault(k, {"launches_per_join": 0.0, "ms_per_join": 0.0})
             rec["launches_per_join"] += c / JOINS

@@ -6,7 +6,8 @@ joins (hash with the lane, sorted and skew impls; merge) and, for a
 Generates the seed-stable relations of a preset on the card (uniform
 ones by the on-device streams), times the join or pipeline jitted
 (tpq_torch/jit.py: one CUDA graph replayed per call, as tpq's runner
-jits every timed call) with CUDA events after a warm-up, accounts it
+jits every timed call) with CUDA events after the capture and the
+preset's warm-up calls, accounts it
 against the measured bandwidth roofline, and labels the row honestly
 when the lane or skew path fell back to the sorted engine, and with the
 jitted calls that reran eagerly (`reruns`). Times exist only for a run
@@ -138,10 +139,14 @@ def device_time(fn, device, n: int) -> tuple[float, float]:
 
 def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]:
     """Per-phase ms of the lane join on the card, each phase jitted (one
-    graph replayed per call, as tpq's phases are jitted). `tail+glue` is
-    probe_emit minus layout and kernel. End to end is not split further:
-    each phase's graph copies its own inputs and outputs, so end to end
-    minus the phases is no time of the join's own."""
+    graph replayed per call, as tpq's phases are jitted), timed as the
+    runner times a join (the capture and one replay first). Each phase's
+    graph reads its inputs in place and returns its outputs in fresh
+    tensors, so a phase's ms holds its kernels, its copy-out and its one
+    read of the flags. `tail+glue` is probe_emit minus layout and kernel.
+    End to end is not split further: each phase pays its own copy-out
+    and flag read, so end to end minus the phases is no time of the
+    join's own."""
     from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                          lane2_hash_join, lane2_probe_emit,
                                          plan_lane2)
@@ -154,7 +159,7 @@ def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]
 
     def ms(fn, *args):
         jitted = jit(fn)
-        return cuda_time(lambda: jitted(*args), dev, iters)[0] * 1e3
+        return cuda_time(lambda: jitted(*args), dev, iters, warmup=2)[0] * 1e3
 
     tables = build_lane2_tables(r, plan)
     qk, spay, lane, qocc, _ = _probe_layout(plan, s, "key")
@@ -250,8 +255,12 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
     if dev.type == "cuda":
         if hbm_bw is None:
             hbm_bw = roofline.measure_hbm_bw(device=dev)
+        # the capture is tpq's compile call (slope_time's untimed first
+        # call), so cfg.warmup replays follow it: the first replay's fresh
+        # result finds the capture's result still held and grows the
+        # allocator by cudaMalloc calls, which no later call repeats
         with trace_if(trace_dir), annotate(span):
-            sec, out = cuda_time(fn, dev, cfg.iters, cfg.warmup)
+            sec, out = cuda_time(fn, dev, cfg.iters, 1 + cfg.warmup)
         fn.jitted.clear()  # the graph's memory pool goes before the caller's next step
         model = bytes_model(r.capacity, len(r.columns), s.capacity,
                             len(s.columns), out_cap)

@@ -8,21 +8,37 @@ Both benches:
     lane probe and emit (lane2_probe_emit) in chunks of `chunk_rows`,
     with tpq's chunk sizes and capacity rules, so that both compute what
     tpq's compute;
-  * check the result against numpy ground truth from the same streams:
-    the join's count for config 2, every group's count and sums for
-    config 4;
+  * run each of tpq's jax.jit programs through tpq_torch.jit (a CUDA
+    graph on the card; `eager=True` runs the same bodies without one):
+    one generator graph and one chunk graph serve every chunk, the
+    chunk's row offset and row count traced (the short last chunk's count
+    goes in as its Table's num_rows, as tpq passes it);
+  * warm every program up off the clock on two chunks (config 4's
+    finalize on two states), so that a program whose argument lies
+    elsewhere at its second call is captured again, with that argument
+    copied in (jit.py), before the clock starts: the timed loop captures
+    nothing (`loop_captures`);
+  * check the result against numpy ground truth from the same streams,
+    outside the timed window: the join's count for config 2, every
+    group's count and sums for config 4;
   * report whether every chunk took the lane path
-    (`lane_path_taken_all_chunks`).
+    (`lane_path_taken_all_chunks`) and, jitted, each program's graphs,
+    captures, reruns and copies, and the tensors copied into the chunk
+    programs' graphs per chunk of the timed loop (`copies_per_chunk`).
 
 Times exist only for a run on a card (host clock around work that ends
 in a synchronize; the chunks' generation on the card is inside it, the
 ground truth is not); on the CPU the benches run and check, and report
-no time.
+no time. `profile=True` runs the timed chunk loop once more under
+torch.profiler: the card's busy ms over the loop, its idle share against
+the unprofiled loop's ms, and the port kernels launched.
 
 CLI (needs a card):
   python -m tpq_torch.bench.scale_bench pipeline   # config 4, 100M fact rows
   python -m tpq_torch.bench.scale_bench sweep      # config 2, 10M x 100M
-      [--json-out=FILE]
+      [--fused] [--eager] [--json-out=FILE]
+(`--fused`: config 4's probe and aggregate as one chunk program, tpq's
+`--fused`; `--eager`: the programs without graphs)
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ import torch
 from tpq_torch import datagen
 from tpq_torch.bench import roofline
 from tpq_torch.columnar import Table, next_pow2
+from tpq_torch.jit import Jitted, jit
 from tpq_torch.kernels.lane2 import build_lane2_tables, lane2_probe_emit, plan_lane2
 from tpq_torch.kernels.move import pad
 from tpq_torch.ops.filter import compact, keep_mask
@@ -80,55 +97,136 @@ def _consume(t: Table) -> torch.Tensor:
     return acc
 
 
+def _program(fn, eager: bool):
+    """One of tpq's jitted programs: jit(fn), or fn itself when eager."""
+    return fn if eager else jit(fn)
+
+
+def _timed_loop(loop, dev: torch.device, programs: dict, chunk_programs,
+                nchunks: int, profile: bool):
+    """Runs loop() (the chunks, ending in a host read) on the clock, with
+    the copies its chunk programs made (_jit_stats); with `profile`, once
+    more under torch.profiler on the card. Returns its result and the
+    loop's ms, busy ms, idle share and port kernels, and, jitted, the
+    graphs captured in the loop's runs (`loop_captures`)."""
+    before = _counters(programs)
+    t0 = _now(dev)
+    res = loop()
+    t = _since(t0, dev)
+    stats = {"loop_ms": None if t is None else t * 1e3,
+             **_jit_stats(programs, chunk_programs, before, nchunks)}
+    if profile and t is not None:
+        from tpq_torch.bench.profile import busy_us, device_activities, port_launches
+
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            loop()
+            torch.cuda.synchronize(dev)
+        acts = device_activities(prof)
+        if not acts:
+            raise RuntimeError("the loop's trace holds no device activity")
+        busy = busy_us(acts) / 1e3
+        stats.update(loop_busy_ms=busy, loop_idle_share=1.0 - busy / stats["loop_ms"],
+                     loop_device_activities=len(acts), port_kernels=port_launches(acts))
+    if stats["jit"] is not None:
+        stats["loop_captures"] = sum(p.captures - before[n][2] for n, p in programs.items()
+                                     if n in before)
+    return res, stats
+
+
+def _jit_stats(programs: dict, chunk_programs, before: dict, nchunks: int) -> dict:
+    """Per jitted program: its graphs kept, captures, reruns and copies;
+    and the tensors (bytes) the chunk programs copied into their graphs
+    per chunk of the timed loop."""
+    jitted = {n: p for n, p in programs.items() if isinstance(p, Jitted)}
+    if not jitted:
+        return {"jit": None}
+    delta = {n: [a - b for a, b in zip(_counters(jitted)[n], before[n])] for n in jitted}
+    return {"jit": {n: {"graphs": len(p._graphs), "captures": p.captures,
+                        "reruns": p.reruns, "copies": p.copies,
+                        "copied_bytes": p.copied_bytes} for n, p in jitted.items()},
+            "copies_per_chunk": sum(delta[n][0] for n in chunk_programs) / nchunks,
+            "copied_bytes_per_chunk": sum(delta[n][1] for n in chunk_programs) / nchunks}
+
+
+def _counters(programs: dict) -> dict:
+    return {n: (p.copies, p.copied_bytes, p.captures) for n, p in programs.items()
+            if isinstance(p, Jitted)}
+
+
 def bench_build_sweep(n_build: int = 10_000_000, n_probe: int = 100_000_000,
                       payloads: int = 4, chunk_rows: int = 1 << 24,
-                      device="cuda", log=print) -> dict:
+                      device="cuda", eager: bool = False, profile: bool = False,
+                      log=print) -> dict:
     """Config 2: 10M x 100M, 4 payload columns, the probe side streamed in
-    chunks against tables built once."""
+    chunks against tables built once; tpq's programs gen_r, build,
+    gen_chunk and probe_chunk (tpq/bench/scale_bench.py:65-95) jitted."""
     dev = torch.device(device)
     hbm_bw = roofline.measure_hbm_bw(device=dev) if dev.type == "cuda" else None
     r_cap = next_pow2(n_build)
-    R = datagen.gen_relation_device(n_build, n_build, payloads, seed=1,
-                                    capacity=r_cap, device=dev)
+    gen_r = _program(lambda d: datagen.gen_relation_device(
+        n_build, n_build, payloads, seed=1, capacity=r_cap, device=d).columns, eager)
+    R = Table(gen_r(dev), n_build)
     # ~1 match per probe row at these key domains, 1.25x slack
     out_cap = chunk_rows + chunk_rows // 4
     plan = plan_lane2(r_cap, chunk_rows, out_capacity=out_cap)
+    build = _program(lambda t: build_lane2_tables(t, plan), eager)
     r_names = [n for n in R.names if n != "key"]
     r_dtypes = [R.col(n).dtype for n in r_names]
     nchunks = -(-n_probe // chunk_rows)
 
-    def probe_chunk(tables, ci):
-        s = datagen.gen_relation_device(
-            min(chunk_rows, n_probe - ci * chunk_rows), n_build, payloads, seed=2,
-            capacity=chunk_rows, row_offset=ci * chunk_rows, device=dev)
-        out, ok = lane2_probe_emit(tables, s, out_cap, r_names=r_names,
-                                   r_dtypes=r_dtypes)
+    # one generator serves every chunk: its row offset is traced
+    gen_chunk = _program(lambda d, off: datagen.gen_relation_device(
+        chunk_rows, n_build, payloads, seed=2, capacity=chunk_rows, row_offset=off,
+        device=d).columns, eager)
+
+    def probe_body(tables, s_cols, s_rows):
+        out, ok = lane2_probe_emit(tables, Table(s_cols, s_rows), out_cap,
+                                   r_names=r_names, r_dtypes=r_dtypes)
         return out.num_rows.to(I64), _consume(out), ok
 
-    probe_chunk(build_lane2_tables(R, plan), 0)  # warm-up, off the clock
+    probe_chunk = _program(probe_body, eager)
+    programs = {"gen_r": gen_r, "build": build, "gen_chunk": gen_chunk,
+                "probe_chunk": probe_chunk}
+
+    def chunk(tables, ci):
+        # the short last chunk's row count is its Table's num_rows, traced
+        rows = min(chunk_rows, n_probe - ci * chunk_rows)
+        return probe_chunk(tables, gen_chunk(dev, ci * chunk_rows), rows)
+
+    # warm-up off the clock, on two chunks: a program whose argument moved
+    # between them is captured again (with its copy-in) before the clock
+    tables = build(R)
+    for ci in range(min(2, nchunks)):
+        chunk(tables, ci)
 
     t0 = _now(dev)
-    tables = build_lane2_tables(R, plan)
+    tables2 = build(R)  # the build timed on its own, one fresh run
     t_build = _since(t0, dev)
+    del tables2
 
-    t0 = _now(dev)
-    total = torch.zeros((), dtype=I64, device=dev)
-    acc = torch.zeros((), dtype=I64, device=dev)
-    oks = []
-    for ci in range(nchunks):
-        rows_c, acc_c, ok = probe_chunk(tables, ci)
-        total, acc = total + rows_c, acc ^ acc_c
-        oks.append(ok)
-    total = int(total)
-    t_probe = _since(t0, dev)
-    elapsed = None if t_probe is None else t_probe + t_build
+    def loop():
+        total = torch.zeros((), dtype=I64, device=dev)
+        acc = torch.zeros((), dtype=I64, device=dev)
+        oks = []
+        for ci in range(nchunks):
+            rows_c, acc_c, ok = chunk(tables, ci)
+            total, acc = total + rows_c, acc ^ acc_c
+            oks.append(ok)
+        return int(total), oks
+
+    (total, oks), loop_stats = _timed_loop(loop, dev, programs,
+                                          ("gen_chunk", "probe_chunk"), nchunks, profile)
+    t_probe = loop_stats["loop_ms"]
+    elapsed = None if t_probe is None else t_probe / 1e3 + t_build
 
     report = {
         "config": "build_sweep_10m_100m", "device": _device_name(dev),
         "n_build": n_build, "n_probe": n_probe, "payloads": payloads,
-        "nchunks": nchunks, "chunk_rows": chunk_rows,
+        "nchunks": nchunks, "chunk_rows": chunk_rows, "eager": eager,
         "elapsed_ms": None if elapsed is None else elapsed * 1e3,
         "build_ms": None if t_build is None else t_build * 1e3,
+        **loop_stats,
         "out_rows": total,
         "lane_path_taken_all_chunks": all(bool(o) for o in oks),
         "hbm_bw_gbps": hbm_bw,
@@ -192,9 +290,12 @@ def groups_equal(got: dict[str, np.ndarray], want: dict[str, np.ndarray]) -> boo
 
 def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
                    fact_payloads: int = 2, chunk_rows: int = 1 << 22,
-                   filter_value: int = 1 << 19, device="cuda", log=print) -> dict:
+                   filter_value: int = 1 << 19, device="cuda", staged: bool = True,
+                   eager: bool = False, profile: bool = False, log=print) -> dict:
     """Config 4 chunked: filter -> hash join -> hash aggregate over the
-    fact table, a chunk at a time:
+    fact table, a chunk at a time, as tpq's programs (the dim generator,
+    build, gen_chunk, probe_core and agg_core, finalize;
+    tpq/bench/scale_bench.py:195-270) jitted:
 
       * the filter is pushed down into the probe layout
         (lane2_probe_emit(keep=...), query.py's fusion);
@@ -203,13 +304,16 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
         and a chunk's aggregate emits ascending unique keys, so PAD places
         them at their slots and int64 adds fold them in (tpq's u32
         carry-chain adds become native int64 adds, which wrap);
+      * `staged` jits the probe and the aggregate as two programs, else
+        one fused chunk program (tpq's staged and `--fused`);
       * finalize compacts the accumulator's groups with PACK.
     """
     dev = torch.device(device)
     hbm_bw = roofline.measure_hbm_bw(device=dev) if dev.type == "cuda" else None
     dim_cap = next_pow2(n_dim)
-    dim = datagen.gen_relation_device(n_dim, n_dim, 1, seed=1, capacity=dim_cap,
-                                      device=dev)
+    gen_dim = _program(lambda d: datagen.gen_relation_device(
+        n_dim, n_dim, 1, seed=1, capacity=dim_cap, device=d).columns, eager)
+    dim = Table(gen_dim(dev), n_dim)
     # ~live_frac of the fact rows pass the filter: the probe layout is
     # sized for the filtered mass (25% margin before plan_lane2's own
     # 1.5x), the emit buffer for ~1 match per passing row (1.5x slack)
@@ -219,55 +323,93 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
     plan = plan_lane2(dim_cap, eff_s_cap, out_capacity=out_cap)
     r_names = [n for n in dim.names if n != "key"]
     r_dtypes = [dim.col(n).dtype for n in r_names]
+    build = _program(lambda t: build_lane2_tables(t, plan), eager)
+    gen_chunk = _program(lambda d, off: datagen.gen_relation_device(
+        chunk_rows, n_dim, fact_payloads, seed=2, capacity=chunk_rows, row_offset=off,
+        device=d).columns, eager)
     n_state = next_pow2(min(filter_value, n_dim))
     vnames = (["count"] + [f"sum_r_{n}" for n in r_names]
               + [f"sum_s_p{j}" for j in range(fact_payloads)])
     nchunks = -(-n_fact // chunk_rows)
 
-    def chunk_step(tables, state, ci):
-        fact = datagen.gen_relation_device(
-            min(chunk_rows, n_fact - ci * chunk_rows), n_dim, fact_payloads, seed=2,
-            capacity=chunk_rows, row_offset=ci * chunk_rows, device=dev)
+    def probe_core(tables, f_cols, f_rows):
+        fact = Table(f_cols, f_rows)
         keep = keep_mask(fact, "key", "lt", filter_value)
         out, ok = lane2_probe_emit(tables, fact, out_cap, r_names=r_names,
                                    r_dtypes=r_dtypes, keep=keep)
-        agg = hash_aggregate(Table(out.columns, out.num_rows.clamp_max(out_cap)))
+        return dict(out.columns), out.num_rows.clamp_max(out_cap), ok
+
+    def agg_core(state, out_cols, out_rows):
+        agg = hash_aggregate(Table(out_cols, out_rows))
         dest = agg.col("key").clamp(0, n_state - 1).to(torch.int32)
         padded, _ = pad([agg.col(n) for n in vnames], dest, agg.num_rows, n_state)
-        return [a + b for a, b in zip(state, padded)], ok
+        return [a + b for a, b in zip(state, padded)]
 
-    def finalize(state):
-        cols = {"key": torch.arange(n_state, dtype=I64, device=dev),
+    def finalize_body(state):
+        cols = {"key": torch.arange(n_state, dtype=I64, device=state[0].device),
                 **dict(zip(vnames, state))}
         return compact(Table(cols, n_state), state[0] > 0)
 
-    def state0():
-        return [torch.zeros(n_state, dtype=I64, device=dev) for _ in vnames]
+    finalize = _program(finalize_body, eager)
+    if staged:
+        probe_j, agg_j = _program(probe_core, eager), _program(agg_core, eager)
+        chunk_programs = {"probe_core": probe_j, "agg_core": agg_j}
 
-    tables = build_lane2_tables(dim, plan)  # warm-up, off the clock
-    finalize(chunk_step(tables, state0(), 0)[0])
-    del tables
+        def chunk_step(tables, state, f_cols, f_rows):
+            out_cols, n_out, ok = probe_j(tables, f_cols, f_rows)
+            return agg_j(state, out_cols, n_out), ok
+    else:
+        def step_body(tables, state, f_cols, f_rows):
+            out_cols, n_out, ok = probe_core(tables, f_cols, f_rows)
+            return agg_core(state, out_cols, n_out), ok
+
+        chunk_step = _program(step_body, eager)
+        chunk_programs = {"chunk_step": chunk_step}
+    programs = {"gen_dim": gen_dim, "build": build, "gen_chunk": gen_chunk,
+                **chunk_programs, "finalize": finalize}
+
+    def chunk(tables, state, ci):
+        # the short last chunk's row count is its Table's num_rows, traced
+        rows = min(chunk_rows, n_fact - ci * chunk_rows)
+        return chunk_step(tables, state, gen_chunk(dev, ci * chunk_rows), rows)
+
+    state0 = [torch.zeros(n_state, dtype=I64, device=dev) for _ in vnames]
+    # warm-up off the clock, on two chunks and finalize on two states: a
+    # program whose argument moved between its calls is captured again
+    # (with its copy-in) before the clock
+    tables = build(dim)
+    finalize(state0)
+    state = state0
+    for ci in range(min(2, nchunks)):
+        state, _ = chunk(tables, state, ci)
+    finalize(state)
+    del state
 
     t0 = _now(dev)
-    tables = build_lane2_tables(dim, plan)
+    tables2 = build(dim)  # the build timed on its own, one fresh run
     t_build = _since(t0, dev)
+    del tables2
 
-    t0 = _now(dev)
-    state, oks = state0(), []
-    for ci in range(nchunks):
-        state, ok = chunk_step(tables, state, ci)
-        oks.append(ok)
-    final = finalize(state)
-    groups = int(final.num_rows)
-    t_run = _since(t0, dev)
-    elapsed = None if t_run is None else t_run + t_build
+    def loop():
+        state, oks = state0, []
+        for ci in range(nchunks):
+            state, ok = chunk(tables, state, ci)
+            oks.append(ok)
+        final = finalize(state)
+        return final, int(final.num_rows), oks
+
+    (final, groups, oks), loop_stats = _timed_loop(
+        loop, dev, programs, ("gen_chunk", *chunk_programs), nchunks, profile)
+    t_run = loop_stats["loop_ms"]
+    elapsed = None if t_run is None else t_run / 1e3 + t_build
 
     report = {
         "config": "pipeline_100m", "device": _device_name(dev),
         "n_dim": n_dim, "n_fact": n_fact, "nchunks": nchunks,
-        "chunk_rows": chunk_rows,
+        "chunk_rows": chunk_rows, "staged": staged, "eager": eager,
         "elapsed_ms": None if elapsed is None else elapsed * 1e3,
         "build_ms": None if t_build is None else t_build * 1e3,
+        **loop_stats,
         "groups": groups,
         "join_rows": int(final.col("count")[:groups].sum()),
         "lane_path_taken_all_chunks": all(bool(o) for o in oks),
@@ -302,15 +444,21 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("which", choices=["sweep", "pipeline"])
     p.add_argument("--json-out", default=None)
+    p.add_argument("--fused", action="store_true",
+                   help="pipeline: one jitted chunk program in place of the staged "
+                        "probe and aggregate programs")
+    p.add_argument("--eager", action="store_true",
+                   help="run the programs eagerly, without CUDA graphs")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tpq_torch.bench.scale_bench measures on a CUDA card; none is visible")
     from tpq_torch.bench.runner import card_info
 
     if args.which == "sweep":
-        rep = bench_build_sweep(log=lambda _: None)
+        rep = bench_build_sweep(eager=args.eager, log=lambda _: None)
     else:
-        rep = bench_pipeline(log=lambda _: None)
+        rep = bench_pipeline(staged=not args.fused, eager=args.eager,
+                             log=lambda _: None)
     rep["card"] = card_info()
     print(json.dumps(rep))
     if args.json_out:

@@ -45,8 +45,13 @@ class Table:
         if len(devices) != 1:
             raise ValueError(f"columns on several devices: {devices}")
         self.columns = columns
-        self.num_rows = torch.as_tensor(num_rows, dtype=torch.int32,
-                                        device=devices.pop())
+        device = devices.pop()
+        # a number is filled on the device: no host copy, so a body that
+        # makes a Table of a static size can be captured into a graph
+        self.num_rows = (torch.as_tensor(num_rows, dtype=torch.int32, device=device)
+                         if isinstance(num_rows, torch.Tensor)
+                         else torch.full((), int(num_rows), dtype=torch.int32,
+                                         device=device))
 
     @property
     def capacity(self) -> int:

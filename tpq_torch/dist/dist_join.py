@@ -210,6 +210,11 @@ def dist_hash_join(
             for i in held:
                 overflow[i] = overflow[i] + s_ovf[i]
                 add_light(i, S2[i], chunk_cap)
+                # shard i's exchanged rows are dead once joined: free them
+                # before the next shard's join (XLA frees by liveness)
+                S2[i] = None
+                if R2 is not None and c == n_chunks - 1:
+                    R2[i] = None
 
     out_shards = []
     for i in held:

@@ -1,5 +1,5 @@
-"""The port of jax.jit for what tpq jits (the single-card joins and the
-pipeline), and of lax.cond.
+"""The port of jax.jit for what tpq jits (the single-card joins, the
+pipeline and the scale benches' programs), and of lax.cond.
 
 tpq runs each join and the pipeline as one jitted XLA program: one
 dispatch, with its branches decided on the device by lax.cond
@@ -10,30 +10,50 @@ replayed in one launch:
 
   * cond(pred, then_fn, else_fn): eager (and on the CPU)
     `then_fn() if bool(pred) else else_fn()`, one host read. While a
-    body is traced for a graph (`deferred`), it runs then_fn and records
-    pred, with no host read; then_fn must therefore be safe to run
-    whatever pred is.
-  * jit(fn): on CPU arguments it calls fn. On the card it keeps one
-    graph per signature: each Table's column names, dtypes and capacity,
-    each tensor's shape and dtype, the device, and the other Python
-    values, which are static and must be hashable. Python numbers passed
-    directly as arguments are traced, as jax.jit traces them: they reach
-    the graph as device scalars filled at every call. A signature's first
-    call runs fn once eagerly on a side stream under `deferred` (the
-    kernels build, the caches and the look-back state fill, and a host
-    read raises), then captures it into a graph over buffers the graph
-    owns. Every call copies the arguments into those buffers, replays,
-    and reads every recorded pred and each output Table's num_rows in
-    one device-to-host copy: one sync, as tpq's result transfer. If a
-    pred is false the replay is discarded and fn runs eagerly on the same
-    arguments, where every cond takes its else branch (lax.cond's
-    meaning, counted in `.reruns`). Output Tables come back as fresh
-    tensors of the same capacity holding the live prefix (rows past
-    num_rows are unspecified, as the Table contract says); other output
-    tensors are cloned, so no later replay overwrites a returned result.
-    A capture that fails, or a host read inside it, raises: the call
-    never runs eagerly in its place. `clear()` frees the graphs and their
-    memory pools, as dropping the callable does.
+    body is traced for a graph (`deferred`), the k-th cond runs the
+    branch of a recorded path (then_fn where no path is given) and
+    records pred, with no host read; each branch must therefore be safe
+    to run whatever pred is. Under `decided` it runs eagerly and records
+    the branch each cond took: the path a graph of that run follows.
+  * jit(fn): on CPU arguments it calls fn. On the card it keeps graphs
+    per signature: each Table's column names, dtypes and capacity, each
+    tensor's shape and dtype, dicts' keys, the device, and the other
+    Python values, which are static and must be hashable (a torch.device
+    passed as an argument places a call that has no tensor). Python numbers
+    passed directly as arguments are traced, as jax.jit traces them: they
+    reach the graph as device scalars that the graph owns, filled at
+    every call. A signature's first call runs fn once eagerly on a side
+    stream under `deferred` (the kernels build, the caches and the
+    look-back state fill, and a host read raises), then captures it.
+  * What a graph reads, and what it pins. A graph is captured over the
+    caller's own tensors and reads them in place at every replay (a
+    tensor changed in place is read with its new contents), so a call
+    whose tensors sit at the addresses (data pointer and strides) of the
+    capture copies nothing. The graph keeps those tensors alive (it holds
+    their pointers) until it is dropped. Where a call brings a tensor at
+    another address, the graph is captured again with that argument
+    position in a buffer of its own, into which each later call copies
+    its tensor (`.copies` counts the tensors so copied, `.copied_bytes`
+    their bytes); a caller's tensor is never written. So a signature's
+    graphs pin at most the tensors of one call each.
+  * Branches. Every call replays the graph of the branch path its
+    signature took last (at first the then-branches), and reads every
+    recorded pred and each output Table's num_rows in one device-to-host
+    copy: one sync, as tpq's result transfer (a graph with neither makes
+    no sync). If a pred disagrees with the path, the replay is discarded
+    (counted in `.reruns`) and fn runs eagerly on the same arguments
+    under `decided`, as lax.cond's taken branches; the graph of the path
+    it took is then captured, and later calls replay it first. At most
+    MAX_PATHS graphs a signature are kept, the least recently used going
+    first.
+  * Outputs. Output Tables come back as fresh tensors of the same
+    capacity holding the live prefix (rows past num_rows are
+    unspecified, as the Table contract says); other output tensors are
+    cloned, so no later replay overwrites a returned result.
+  * A capture that fails, or a host read inside it, raises: the call
+    never runs eagerly in its place. `clear()` frees the graphs, their
+    memory pools, their buffers and the tensors they pin, as dropping the
+    callable does.
 
 Launch counts (`.launches` on the kernel wrappers) are Python counters:
 a replay runs no Python, so count and hold kernels on eager calls of
@@ -52,37 +72,74 @@ import torch
 
 from tpq_torch.columnar import Table
 
-# the preds recorded by cond while a body is traced for a graph; None
-# when cond reads its pred on the host
-_PREDS: contextvars.ContextVar = contextvars.ContextVar("tpq_torch_jit_preds",
+# graphs kept a signature: one a branch path, the least recently used
+# dropped first
+MAX_PATHS = 2
+
+
+class _Trace:
+    """What cond does in a run. Under a capture (`eager` False) the k-th
+    cond takes the branch path[k] (then_fn where path is None) and appends
+    its pred, unread; eagerly (`eager` True) it reads pred and appends
+    the branch taken (True: then_fn)."""
+
+    __slots__ = ("path", "eager", "preds")
+
+    def __init__(self, path=None, eager=False):
+        self.path, self.eager, self.preds = path, eager, []
+
+
+# the trace of the run in progress; None when cond reads its pred on the
+# host and records nothing
+_TRACE: contextvars.ContextVar = contextvars.ContextVar("tpq_torch_jit_trace",
                                                         default=None)
 
 
 @contextlib.contextmanager
-def deferred():
-    """The capture flag: while it is set, cond runs then_fn and appends
-    its pred to the list this yields instead of reading it."""
-    preds: list = []
-    token = _PREDS.set(preds)
+def _traced(trace: _Trace):
+    token = _TRACE.set(trace)
     try:
-        yield preds
+        yield trace.preds
     finally:
-        _PREDS.reset(token)
+        _TRACE.reset(token)
+
+
+def deferred(path=None):
+    """The capture flag: while it is set, the k-th cond runs the branch
+    path[k] (then_fn where path is None) and appends its pred, unread, to
+    the list this yields."""
+    return _traced(_Trace(path))
+
+
+def decided():
+    """An eager run whose conds read their preds and append the branch
+    each took (True for then_fn) to the list this yields."""
+    return _traced(_Trace(eager=True))
 
 
 def cond(pred, then_fn, else_fn):
     """tpq's lax.cond(pred, then_fn, else_fn): eager, one host read of
-    pred; under `deferred`, then_fn with pred recorded."""
-    preds = _PREDS.get()
-    if preds is None:
+    pred; under `deferred`, the recorded path's branch with pred recorded;
+    under `decided`, eager with the branch recorded."""
+    trace = _TRACE.get()
+    if trace is None:
         return then_fn() if bool(pred) else else_fn()
-    preds.append(pred)
-    return then_fn()
+    if trace.eager:
+        take = bool(pred)
+        trace.preds.append(take)
+    else:
+        k = len(trace.preds)
+        if trace.path is not None and k >= len(trace.path):
+            raise RuntimeError(f"jit: cond {k} of a body recorded with "
+                               f"{len(trace.path)} conds")
+        take = True if trace.path is None else trace.path[k]
+        trace.preds.append(pred)
+    return then_fn() if take else else_fn()
 
 
 def jit(fn) -> "Jitted":
-    """fn compiled as tpq's jax.jit compiles it: one CUDA graph per
-    signature on the card, fn itself on the CPU (module docstring)."""
+    """fn compiled as tpq's jax.jit compiles it: CUDA graphs per signature
+    on the card, fn itself on the CPU (module docstring)."""
     return Jitted(fn)
 
 
@@ -106,6 +163,8 @@ def _flatten(x, leaves: list, top: bool = False):
         return ("number", type(x))
     if isinstance(x, (list, tuple)):
         return (type(x), tuple(_flatten(v, leaves) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in x.items()))
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return (type(x), tuple((f.name, _flatten(getattr(x, f.name), leaves))
                                for f in dataclasses.fields(x)))
@@ -125,6 +184,8 @@ def _unflatten(spec, leaves):
         return spec[1]
     if kind in (list, tuple):
         return kind(_unflatten(s, leaves) for s in spec[1])
+    if kind is dict:
+        return {k: _unflatten(s, leaves) for k, s in spec[1]}
     return kind(**{name: _unflatten(s, leaves) for name, s in spec[1]})
 
 
@@ -136,11 +197,27 @@ def _map(x, on_table, on_tensor):
         return on_tensor(x)
     if isinstance(x, (list, tuple)):
         return type(x)(_map(v, on_table, on_tensor) for v in x)
+    if isinstance(x, dict):
+        return {k: _map(v, on_table, on_tensor) for k, v in x.items()}
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return dataclasses.replace(x, **{f.name: _map(getattr(x, f.name), on_table,
                                                       on_tensor)
                                          for f in dataclasses.fields(x) if f.init})
     return x
+
+
+def _addresses(leaves) -> tuple:
+    """Where each leaf lies: a tensor's (data pointer, strides), None for
+    a Python number. A graph replays over the tensors at these places."""
+    return tuple((x.data_ptr(), x.stride()) if isinstance(x, torch.Tensor) else None
+                 for x in leaves)
+
+
+def _placed(device: torch.device) -> torch.device:
+    """A device argument with its index: the current card's for "cuda"."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _take_stream_state(device: torch.device, stream: int):
@@ -164,22 +241,26 @@ def _host_reads_raise():
 
 
 # ---------------------------------------------------------------------------
-# one signature's graph
+# one signature's graph of one branch path
 # ---------------------------------------------------------------------------
 
 class _Graph:
-    """The graph of one signature: its input buffers, the captured graph,
-    its outputs as captured, the flags read after each replay (the
-    recorded preds, then each output Table's num_rows) and the kernel
-    state it was captured with."""
+    """The graph of one signature along one branch path: its inputs (the
+    caller's tensors, pinned, except at the positions in `owned` and for
+    Python numbers, where they are buffers of its own), the captured
+    graph, its outputs as captured, the flags read after each replay (the
+    recorded preds, then each output Table's num_rows), the path it
+    follows and the kernel state it was captured with."""
 
-    def __init__(self, fn, spec, leaves, device: torch.device):
+    def __init__(self, fn, spec, leaves, device: torch.device, path, owned):
+        self.device, self.owned = device, frozenset(owned)
         self.inputs = [
-            torch.empty_like(x, memory_format=torch.contiguous_format)
+            x if isinstance(x, torch.Tensor) and i not in self.owned
+            else torch.empty_like(x, memory_format=torch.contiguous_format)
             if isinstance(x, torch.Tensor)
             else torch.empty((), dtype=torch.int64 if isinstance(x, int)
                              else torch.float64, device=device)
-            for x in leaves]
+            for i, x in enumerate(leaves)]
         self.load(leaves)
         it = iter(self.inputs)
         args = [_unflatten(a, it) for a in spec]
@@ -188,14 +269,14 @@ class _Graph:
         stream.wait_stream(torch.cuda.current_stream(device))
         # warm-up: the kernels build, the work-item caches and this
         # stream's look-back state fill, the path the graph takes runs
-        with torch.cuda.stream(stream), deferred(), _host_reads_raise():
+        with torch.cuda.stream(stream), deferred(path), _host_reads_raise():
             fn(*args)
         self.graph = torch.cuda.CUDAGraph()
         # relaxed: the wrappers' own CUDA queries (occupancy, shared
         # memory limits) are no stream work; a sync on the capturing
         # stream still fails the capture
         with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="relaxed"), deferred() as preds:
+                              capture_error_mode="relaxed"), deferred(path) as preds:
             self.out = fn(*args)
             tables = []
             _map(self.out, tables.append, lambda t: t)
@@ -203,20 +284,38 @@ class _Graph:
                      + [t.num_rows.reshape(()).to(torch.int64) for t in tables])
             self.flags = torch.stack(flags) if flags else None
         self.npreds = len(preds)
+        self.path = tuple(path) if path is not None else (True,) * self.npreds
         self.state = _take_stream_state(device, stream.cuda_stream)
         torch.cuda.current_stream(device).wait_stream(stream)
 
-    def load(self, leaves) -> None:
-        for buf, x in zip(self.inputs, leaves):
-            if isinstance(x, torch.Tensor):
-                buf.copy_(x)
-            else:
+    def moved(self, leaves) -> set:
+        """The pinned positions whose tensor in `leaves` lies elsewhere (a
+        number's position holds a scalar of the graph's own)."""
+        return {i for i, (a, b) in enumerate(zip(_addresses(self.inputs),
+                                                 _addresses(leaves)))
+                if b is not None and i not in self.owned and a != b}
+
+    def load(self, leaves) -> tuple[int, int]:
+        """Copies the tensors of the owned positions in and fills the
+        numbers; returns (tensors copied, bytes copied)."""
+        copies = nbytes = 0
+        for i, (buf, x) in enumerate(zip(self.inputs, leaves)):
+            if not isinstance(x, torch.Tensor):
                 buf.fill_(x)
+            elif i in self.owned:
+                buf.copy_(x)
+                copies += 1
+                nbytes += x.numel() * x.element_size()
+        return copies, nbytes
 
     def replay(self) -> list:
         """Replays; returns the flags (the one device-to-host copy)."""
         self.graph.replay()
         return self.flags.tolist() if self.flags is not None else []
+
+    def follows(self, flags) -> bool:
+        """Whether every recorded pred agrees with the path replayed."""
+        return all(bool(f) == p for f, p in zip(flags[:self.npreds], self.path))
 
     def result(self, num_rows: list):
         """The outputs in fresh tensors: each Table's live prefix (its
@@ -237,40 +336,81 @@ class _Graph:
 
 class Jitted:
     """A jitted callable (see `jit`). `__wrapped__` is fn, the eager body;
-    `reruns` counts the calls whose replay was discarded for a false
-    pred and ran fn eagerly."""
+    `reruns` counts the calls whose replay was discarded for a pred that
+    disagreed with its path and ran fn eagerly; `copies` and
+    `copied_bytes` count the tensors (and their bytes) copied into a
+    graph's own buffers because they lay elsewhere than at its capture;
+    `captures` counts the graphs captured."""
 
     def __init__(self, fn):
         functools.update_wrapper(self, fn)
-        self.reruns = 0
-        self._graphs: dict = {}
+        self.reruns = self.copies = self.copied_bytes = self.captures = 0
+        self._graphs: dict = {}  # (signature, path) -> _Graph, least recent first
+        self._last: dict = {}    # signature -> the path of its last call
+        self._owned: dict = {}   # signature -> positions whose tensors moved
 
     def clear(self) -> None:
-        """Frees every graph, its memory pool and its buffers (after the
-        card has finished with them)."""
-        for dev in {g.inputs[0].device for g in self._graphs.values() if g.inputs}:
+        """Frees every graph, its memory pool, its buffers and the tensors
+        it pins (after the card has finished with them)."""
+        for dev in {g.device for g in self._graphs.values()}:
             torch.cuda.synchronize(dev)
         self._graphs.clear()
+        self._last.clear()
+        self._owned.clear()
+
+    def _capture(self, spec, path, leaves, device) -> _Graph:
+        """Captures the graph of `spec` along `path` (None: the
+        then-branches) over `leaves`, keeping at most MAX_PATHS a
+        signature."""
+        same = [k for k in self._graphs if k[0] == spec]
+        if len(same) >= MAX_PATHS:
+            torch.cuda.synchronize(device)
+            del self._graphs[same[0]]
+        graph = _Graph(self.__wrapped__, spec, leaves, device, path,
+                       self._owned.setdefault(spec, set()))
+        self.captures += 1
+        self._graphs[(spec, graph.path)] = graph
+        self._last[spec] = graph.path
+        return graph
 
     def __call__(self, *args):
         fn = self.__wrapped__
-        if _PREDS.get() is not None:  # traced inside another jitted body
+        if _TRACE.get() is not None:  # traced or decided inside another body
             return fn(*args)
         leaves: list = []
         spec = tuple(_flatten(a, leaves, top=True) for a in args)
-        devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+        devices = ({x.device for x in leaves if isinstance(x, torch.Tensor)}
+                   | {_placed(a) for a in args if isinstance(a, torch.device)})
         if not any(d.type == "cuda" for d in devices):
             return fn(*args)
         if len(devices) != 1:
             raise ValueError(f"jit: arguments on several devices "
                              f"{sorted(map(str, devices))}")
-        graph = self._graphs.get(spec)
+        device = devices.pop()
+        path = self._last.get(spec)
+        graph = self._graphs.pop((spec, path), None)
+        if graph is not None:
+            moved = graph.moved(leaves)
+            if moved:  # captured again with those positions in its own buffers
+                self._owned[spec] |= moved
+                torch.cuda.synchronize(device)
+                graph = None
+            else:
+                self._graphs[(spec, path)] = graph  # the most recently used
         if graph is None:
-            graph = self._graphs[spec] = _Graph(fn, spec, leaves, devices.pop())
-        else:
-            graph.load(leaves)
+            graph = self._capture(spec, path, leaves, device)
+        copies, nbytes = graph.load(leaves)
+        self.copies += copies
+        self.copied_bytes += nbytes
         flags = graph.replay()
-        if not all(flags[:graph.npreds]):
-            self.reruns += 1
-            return fn(*args)
-        return graph.result(flags[graph.npreds:])
+        if graph.follows(flags):
+            return graph.result(flags[graph.npreds:])
+        self.reruns += 1
+        with decided() as taken:
+            out = fn(*args)
+        path = tuple(taken)
+        if (spec, path) in self._graphs:
+            self._last[spec] = path
+        else:  # the next call replays this path's graph
+            self._capture(spec, path, leaves, device)
+        return out

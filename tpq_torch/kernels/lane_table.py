@@ -125,7 +125,9 @@ def _rank_in_group(group: torch.Tensor) -> torch.Tensor:
     """group: sorted [N]. Returns i - first_index_of(group[i]) as int64."""
     i = torch.arange(group.shape[0], dtype=I64, device=group.device)
     new = torch.ones_like(group, dtype=torch.bool)
-    new[1:] = group[1:] != group[:-1]
+    # written in place: a slice assignment would add a device copy, which
+    # a CUDA graph runs as a slower memcpy node
+    torch.ne(group[1:], group[:-1], out=new[1:])
     return i - last_start(new)
 
 

@@ -45,7 +45,7 @@ def hash_aggregate(t: Table, key: str = "key") -> Table:
     valid = ts.valid_mask()
     # a run ends where the next row has another key or is padding, or at cap-1
     nxt_new = torch.ones(cap, dtype=torch.bool, device=dev)
-    nxt_new[:-1] = (k[1:] != k[:-1]) | ~valid[1:]
+    torch.bitwise_or(k[1:] != k[:-1], ~valid[1:], out=nxt_new[:-1])  # in place, no copy
     is_end = valid & nxt_new
 
     # native int64 cumsums, which wrap, replace tpq's u32 plane carry

@@ -156,10 +156,15 @@ def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
         perm = _stable_lexsort([inv, k, side])
         inv_s, k_s, side_s = inv[perm], k[perm], side[perm]
         vals_s = {n: v[perm] for n, v in vals.items()}
+        del perm
+    # the unsorted union is dead: free it before the run structure (XLA
+    # frees by liveness; here each is a full-length column)
+    del inv, k, side, vals
 
     valid = inv_s == 0
     is_r = (side_s == 0) & valid
     is_s = (side_s == 1) & valid
+    del inv_s, side_s
 
     # ---- run structure: torch scans replace tpq's tiled scans ----
     nr = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
@@ -169,6 +174,7 @@ def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     rs = last_start(nr)                   # run start of position i
     m = cr_ex - cr_ex[rs]                 # R rows before position i in its run
     m_s = torch.where(is_s, m, 0)         # per-S-row match count
+    del valid, is_r, is_r64, cr_ex, nr
 
     total64 = m_s.sum()
     total = total64.clamp_max(2**31 - 1).to(I32)
