@@ -57,12 +57,14 @@ Phases, one line each; any failure raises and exits non-zero:
                 a second seed each equal to the C++ oracle, one graph, no
                 rerun; smoke_pipeline also at a second filter value; a
                 profiled replay launching the same port kernels, by name
-                and count, as a profiled eager call of the same body;
+                and count, as an eager call of the same body (its
+                wrappers' launch counts);
                 end-to-end ms eager and jitted in turns (eager, jitted,
                 jitted, eager); then, by bench.profile in turns (end to
                 end, device busy, idle share): pipeline_100m jitted
                 against eager, after a second call on the same tensors
-                copied nothing in; config 3's shape with impl="lane" (ok
+                copied nothing in, with jitted busy over eager busy (the
+                sorts' device copies); config 3's shape with impl="lane" (ok
                 false: one rerun, then the fallback path's graph, rows
                 equal to the oracle); the h2-colliding pair over three
                 calls, each equal to the oracle, the second and third
@@ -103,7 +105,9 @@ Phases, one line each; any failure raises and exits non-zero:
                 path; the first eager run's timed loop counted (exactly
                 SCALE_LAUNCHES' launches for its chunks and finalize);
                 jitted, one graph a program, no rerun, no capture in the
-                loops, the tensors copied in per chunk, and the replayed
+                loops, no tensor copied in (the chunk programs hand their
+                outputs over, the accumulator is updated in place), loop
+                busy against eager busy, and the replayed
                 loop's port kernels equal to the eager loop's by name and
                 count; the dense accumulator's PAD call (its last) timed
                 beside index_copy_;
@@ -127,20 +131,30 @@ Phases, one line each; any failure raises and exits non-zero:
                 to its plain version on the same inputs (the sizes past
                 2^31 that no CPU test reaches); PAD, PACK, the fused
                 walk/emit and the hash timed at their largest call of that
-                join (`config5_largest` in their records); the multiset
-                checksum equal to the single-card lane join's; end-to-end
-                and planning ms, peak memory;
+                join (`config5_largest` in their records); then the
+                planned join with its body jitted (jitted_dist_join): the
+                body once under the capture flag with sync debug mode
+                error (no host read), the first jitted call and a replay
+                each held like the eager join (overflow, count, key
+                ranges) and to its checksum, one capture and no rerun,
+                peak allocated and reserved eager and jitted under 70 GB,
+                a replay's port kernels equal to an eager call's, eager
+                and jitted in turns; planning, body eager and body jitted
+                ms apart; the multiset checksum equal to the single-card
+                lane join's;
  14. scaling  — the weak-scaling bench (bench.scaling) at 2^24 rows a
                 shard on 1, 2, 4 and 8 shards of the card: one join at 8
                 shards (134M x 134M) counted (the hash and PACK launched,
-                nothing else), then every size's overflow zero and
-                num_rows equal to a count made without the join, each
-                record naming its one-card local mesh; the counted join's
-                peak memory against the 70 GB limit;
+                nothing else) and held, then jitted against eager
+                (jitted_dist_join, as config 5), then the bench jitted:
+                every size's overflow zero and num_rows equal to a count
+                made without the join, each record naming its one-card
+                local mesh and its one capture and no rerun;
  15. overlap  — the overlap matrix (bench.overlap_bench) at 8 shards of
                 2^24 rows: dense in 1 and 4 chunks and the ring's hops,
-                each variant's num_rows equal to the dense one's; the
-                counted joins' peak memory against the 70 GB limit.
+                counted and held (dense_4chunks, ring_hops), each variant
+                jitted against eager (jitted_dist_join), then the matrix
+                jitted, each variant's num_rows equal to the dense one's.
 The line before the last is the kernels' JSON record: `launches` is the
 sum over the paths (config 1, config 3, the radix merge, config 4's
 pipeline, config 4 chunked, config 2, config 5, the scaling bench's join,
@@ -1000,60 +1014,94 @@ def fallback_phase(dev):
                       "(65536 rows)")
 
 
-def same_port_kernels(eager, replay, dev):
-    """{kernel of tpq_torch/csrc: launches} of an eager call and of a
-    replay, by the names bench.profile reads, from one profiler trace of
-    eager, replay, eager, replay, each call in a range of its own that
-    ends in a synchronize (its device activities start inside it). The
-    second pair is compared: once other traces had run in the process,
-    a trace's first kernel went missing (one hash of an eager config-1
-    join, in three traces running)."""
+# the kernels of tpq_torch/csrc each wrapper launches once a counted
+# launch, by the names a trace gives them (bench.profile.PORT_KERNELS)
+KERNELS_OF = {"pad": ("pad_kernel",), "pack": ("pack_kernel",),
+              "fused_walk_emit": ("walk_emit_kernel",),
+              "probe_walk": ("probe_walk_kernel",),
+              "split1": ("digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel"),
+              "radix_histogram": ("hist_shared_bins",), "hash_keys": ("hash_keys_kernel",)}
+
+
+def eager_port_kernels(fn, dev) -> dict:
+    """{kernel of tpq_torch/csrc: launches} of one eager call of fn(), from
+    the wrappers' launch counts (zeroed just before, read just after): a
+    trace of an eager call lost a hash kernel now and then (configs 1 and
+    smoke_pipeline, in every one of three traces), a wrapper's count
+    never does."""
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    fn()
+    torch.cuda.synchronize(dev)
+    return {k: w.launches for name, w in ws.items() if w.launches
+            for k in KERNELS_OF[name]}
+
+
+def port_kernels_of(fn, dev, traces=3) -> dict:
+    """{kernel of tpq_torch/csrc: launches} of one call of fn() as a trace
+    sees it (a replay runs no wrapper): the most launches of each kernel
+    over `traces` traces of one call each, the call between two small
+    elementwise kernels 20 ms away. A trace can lose a device item, never
+    add one, so the most over a few traces is the call's count; time
+    ranges inside one trace were off by whole kernels (a range around a
+    planned config-5 join missed 7 of its first)."""
     from tpq_torch.bench.profile import device_activities, port_launches
 
-    calls = [("first_eager", eager), ("first_replay", replay), ("eager", eager),
-             ("replay", replay)]
-    torch.cuda.synchronize(dev)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for label, fn in calls:
-            with torch.profiler.record_function(f"chip_smoke:{label}"):
-                fn()
-                torch.cuda.synchronize(dev)
-    ranges = {e.name[len("chip_smoke:"):]: e.time_range for e in prof.events()
-              if e.name.startswith("chip_smoke:")
-              and e.device_type == torch.autograd.DeviceType.CPU}
-    acts = device_activities(prof)
-    return tuple(port_launches([a for a in acts
-                                if ranges[k].start <= a[0] <= ranges[k].end])
-                 for k in ("eager", "replay"))
+    def fence():
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize(dev)
+
+    most: dict = {}
+    for _ in range(traces):
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fence()
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize(dev)
+            time.sleep(0.02)
+            fence()
+        for k, n in port_launches(device_activities(prof)).items():
+            most[k] = max(most.get(k, 0), n)
+    return most
 
 
-def jit_path(label, dev, call, second, want, want2):
-    """One jitted path (a join_fn call): its body once under the capture
-    flag with every sync raising; the first jitted call (capture, replay)
-    and `second()` (a replay on other inputs) against `want` and `want2`,
-    one graph and no rerun; the kernels of a profiled replay against a
-    profiled eager call's; end-to-end ms eager and jitted in turns."""
-    from tpq_torch.bench.runner import cuda_time
-    from tpq_torch.columnar import canonicalize, tables_equal
+def body_makes_no_host_read(dev, body) -> int:
+    """Runs body() once under the capture flag with sync debug mode
+    "error" (a host read raises); returns the conds it recorded."""
     from tpq_torch.jit import deferred
 
     prev = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with deferred() as preds:
-            call.eager()
+            body()
         torch.cuda.synchronize(dev)
     finally:
         torch.cuda.set_sync_debug_mode(prev)
-    check(len(preds) == 1, f"{label}: {len(preds)} conds in the body")
+    return len(preds)
+
+
+def jit_path(label, dev, call, second, want, want2):
+    """One jitted path (a join_fn call): its body once under the capture
+    flag with every sync raising; the first jitted call (capture, replay)
+    and `second()` (a replay on other inputs) against `want` and `want2`,
+    one graph and no rerun; the kernels of a profiled replay against an
+    eager call's; end-to-end ms eager and jitted in turns."""
+    from tpq_torch.bench.runner import cuda_time
+    from tpq_torch.columnar import canonicalize, tables_equal
+
+    conds = body_makes_no_host_read(dev, call.eager)
+    check(conds == 1, f"{label}: {conds} conds in the body")
     check(tables_equal(canonicalize(call()), want), f"{label}: jitted call != oracle")
     check(tables_equal(canonicalize(second()), want2),
           f"{label}: replay on the second inputs != oracle")
     jitted = call.jitted
     check(len(jitted._graphs) == 1 and jitted.reruns == 0,
           f"{label}: {len(jitted._graphs)} graphs, {jitted.reruns} reruns")
-    eager_k, replay_k = same_port_kernels(call.eager, call, dev)
+    eager_k, replay_k = eager_port_kernels(call.eager, dev), port_kernels_of(call, dev)
     check(eager_k and eager_k == replay_k,
           f"{label}: replay kernels {replay_k} != eager {eager_k}")
     e1, j1, j2, e2 = (cuda_time(f, dev, 5)[0] * 1e3
@@ -1068,21 +1116,22 @@ def jit_path(label, dev, call, second, want, want2):
     return {"eager_ms": [e1, e2], "jitted_ms": [j1, j2], "port_kernels": replay_k}
 
 
-def turns(label, dev, eager, jitted) -> dict:
+def turns(label, dev, eager, jitted, joins=10, warmup=3, where="jit") -> dict:
     """bench.profile's end to end, device busy ms and idle share of an
-    eager and a jitted call, in turns (eager, jitted, jitted, eager)."""
+    eager and a jitted call, in turns (eager, jitted, jitted, eager),
+    each over `joins` calls after `warmup` calls."""
     from tpq_torch.bench.profile import profile_join
 
     keys = ("end_to_end_ms", "device_busy_ms", "device_idle_share")
     rows = {"eager": [], "jitted": []}
     for form in ("eager", "jitted", "jitted", "eager"):
-        p = profile_join(eager if form == "eager" else jitted, dev)
+        p = profile_join(eager if form == "eager" else jitted, dev, joins, warmup)
         rows[form].append({k: p[k] for k in keys})
-    phase("jit", f"{label}, in turns (bench.profile: 3 warm-ups, 10 calls): " + "; ".join(
-        f"{form} " + ", ".join(f"{r['end_to_end_ms']:.4f} ms (busy "
-                               f"{r['device_busy_ms']:.4f}, idle "
-                               f"{r['device_idle_share']:.4f})" for r in rs)
-        for form, rs in rows.items()))
+    phase(where, f"{label}, in turns (bench.profile: {warmup} warm-ups, {joins} calls): "
+          + "; ".join(f"{form} " + ", ".join(f"{r['end_to_end_ms']:.4f} ms (busy "
+                                             f"{r['device_busy_ms']:.4f}, idle "
+                                             f"{r['device_idle_share']:.4f})" for r in rs)
+                      for form, rs in rows.items()))
     return rows
 
 
@@ -1146,6 +1195,12 @@ def jit_phase(dev, cfg1, cfg3, smoke_cfg, cfg4):
     out["config4"] = turns("config 4 (pipeline_100m)", dev, call.eager, call)
     check(jitted.copies == 0 and jitted.reruns == 0,
           f"config 4: {jitted.copies} copies, {jitted.reruns} reruns in the turns")
+    busy = {f: [r["device_busy_ms"] for r in rs] for f, rs in out["config4"].items()}
+    gaps = [j - sum(busy["eager"]) / 2 for j in busy["jitted"]]
+    out["config4"]["busy_gap_ms"] = gaps
+    phase("jit", "config 4 (pipeline_100m): jitted busy over the mean eager busy, each "
+                 "jitted turn: " + ", ".join(f"{g:.4f} ms" for g in gaps)
+          + " (the sorts' device copies run as memcpy nodes: diagnose sort)")
     jitted.clear()
     del r, s, call, jitted
     torch.cuda.empty_cache()
@@ -1394,12 +1449,12 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
 # its aggregate's groups and PADs them into the accumulator, and its
 # finalize PACKs the groups once. A bench run builds twice (the warm-up's
 # tables, the timed build), runs min(2, nchunks) warm-up chunks before
-# its loop, and config 4 finalizes twice in the warm-up and once a loop.
+# its loop, and config 4 finalizes once in the warm-up and once a loop.
 LANE_BUILD = {"hash_keys": 2, "pad": 1}
 LANE_CHUNK = {"hash_keys": 2, "pad": 2, "pack": 1, "fused_walk_emit": 1}
 SCALE_LAUNCHES = {
     "config4_chunked": {"build": LANE_BUILD, "chunk": {**LANE_CHUNK, "pad": 3, "pack": 2},
-                        "finalize": {"pack": 1}, "warm_finalizes": 2},
+                        "finalize": {"pack": 1}, "warm_finalizes": 1},
     "config2": {"build": LANE_BUILD, "chunk": LANE_CHUNK, "finalize": {},
                 "warm_finalizes": 0},
 }
@@ -1490,10 +1545,17 @@ def scale_forms(label, dev, bench, forms):
             check(rep["port_kernels"] == eager_kernels,
                   f"{label} {name}: the replayed loop's port kernels "
                   f"{rep['port_kernels']} != the eager loop's {eager_kernels}")
+            # the hand-off: a chunk's programs read each other's outputs in
+            # place, and config 4's state is updated in place in the graph
+            check(rep["copies_per_chunk"] == 0,
+                  f"{label} {name}: {rep['copies_per_chunk']} tensors copied in per chunk")
+            eager_busy = [r["loop_busy_ms"] for r in reports["eager"]]
             what = (f"one graph a program, 0 reruns, 0 captures in the loops, loop's "
                     f"port kernels == eager's; "
                     f"{rep['copies_per_chunk']:.2f} tensors "
                     f"({rep['copied_bytes_per_chunk']:.0f} B) copied in per chunk; "
+                    f"loop busy / the eager runs' mean so far "
+                    f"{rep['loop_busy_ms'] / (sum(eager_busy) / len(eager_busy)):.4f}; "
                     f"captures " + ", ".join(f"{n} {st['captures']}"
                                              for n, st in rep["jit"].items()))
         phase(label, f"{name}: {rep['elapsed_ms']:.4f} ms (build {rep['build_ms']:.4f}, "
@@ -1577,13 +1639,87 @@ def entry_phase(dev):
                    f"filter | join | aggregate")
 
 
+def peaks(dev, run):
+    """(run()'s result, peak allocated bytes, peak reserved bytes), from
+    an emptied cache."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = run()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
+
+
+def jitted_dist_join(dev, label, mesh, eager, jitted, check_result,
+                     bodies=None) -> dict:
+    """A distributed join of a LocalMesh jitted (its body one CUDA graph,
+    the results handed over) against its eager body: the first jitted
+    call (the warm-up, the capture, a replay) and a replay, each result
+    held by check_result(out, ovf); their peak allocated and reserved
+    bytes, the jitted ones against PEAK_LIMIT; a replay's port kernels
+    equal to an eager call's (of `bodies`, (eager, jitted) calls of the
+    body alone, where the join plans first); eager and jitted in turns
+    (bench.profile, 2 calls a turn); no rerun. An eager call frees the
+    mesh's graphs first, as the benches free a graph before the next
+    join: an 8-shard body's memory pool does not fit beside an eager run
+    of it. Returns the record for PERF.md."""
+    def eager_call():
+        mesh.clear()
+        return eager()
+
+    eager_body, jitted_body = bodies or (eager, jitted)
+
+    (out, ovf), alloc_e, res_e = peaks(dev, eager_call)
+    check_result(out, ovf)
+    del out, ovf
+    mesh.clear()
+    (out, ovf), alloc_j, res_j = peaks(dev, jitted)
+    check_result(out, ovf)
+    del out, ovf
+    check_result(*jitted())
+    (prog,) = mesh.programs.values()
+    check((prog.captures, prog.reruns, prog.copies) == (1, 0, 0),
+          f"{label}: captures {prog.captures}, reruns {prog.reruns}, copies "
+          f"{prog.copies} after two calls")
+    phase(label, f"jitted: first call and a replay exact, {prog.captures} capture, "
+                 f"{prog.reruns} reruns, {prog.copies} copies; peak allocated / reserved "
+                 f"eager {alloc_e} / {res_e} B, jitted {alloc_j} / {res_j} B (limit "
+                 f"{PEAK_LIMIT} B)")
+    for what, b in (("jitted allocated", alloc_j), ("jitted reserved", res_j)):
+        check(b <= PEAK_LIMIT, f"{label}: peak {what} {b} B over {PEAK_LIMIT} B")
+    mesh.clear()
+    eager_k = eager_port_kernels(eager_body, dev)
+    jitted_body()  # the graph captured again, off the trace
+    replay_k = port_kernels_of(jitted_body, dev)
+    check(eager_k and eager_k == replay_k,
+          f"{label}: replay kernels {replay_k} != eager {eager_k}")
+    seen = []
+
+    def jitted_call():  # the captures and reruns of each jitted turn's graph
+        res = jitted()
+        progs = list(mesh.programs.values())
+        seen.append((sum(p.captures for p in progs), sum(p.reruns for p in progs)))
+        return res
+
+    # two warm-ups: a jitted turn's first call captures, its second replays
+    rows = turns(label, dev, eager_call, jitted_call, joins=2, warmup=2, where=label)
+    check(all(r == 0 for _, r in seen) and all(c == 1 for c, _ in seen),
+          f"{label}: (captures, reruns) in the turns {sorted(set(seen))}")
+    phase(label, f"profiled replay's port kernels == eager call's {replay_k}; each "
+                 f"jitted turn: 1 capture (its first warm-up), 0 reruns")
+    mesh.clear()
+    return {"turns": rows, "peak_allocated": [alloc_e, alloc_j],
+            "peak_reserved": [res_e, res_j], "port_kernels": replay_k}
+
+
 def config5_phase(dev, K, cfg):
-    """The distributed join at dist_125m_8shard; returns its launches."""
+    """The distributed join at dist_125m_8shard, eager (counted, held,
+    against the oracle) and jitted; returns its launches."""
     from tpq_torch import Table
     from tpq_torch.bench.runner import cuda_time
     from tpq_torch.columnar import next_pow2, tables_equal
-    from tpq_torch.dist import (DistTable, dist_hash_join_planned, make_mesh,
-                                plan_dist_capacities)
+    from tpq_torch.dist import (DistTable, dist_hash_join, dist_hash_join_planned,
+                                make_mesh, plan_dist_capacities)
     from tpq_torch.kernels.lane2 import lane2_hash_join, lane2_path_taken, plan_lane2
     from tpq_torch.kernels.lane_table import plan_pressure
     from tpq_torch.verify import M64, multiset_checksum, sample_key_ranges, slice_by_key
@@ -1603,16 +1739,49 @@ def config5_phase(dev, K, cfg):
                mesh.size)
     ex_cap, out_cap = plan_dist_capacities(R, S, mesh)
 
+    def body(eager):
+        return dist_hash_join(R, S, mesh, out_cap, exchange_capacity=ex_cap,
+                              local_impl="lane", eager=eager)
+
+    def planned(eager):
+        return dist_hash_join_planned(R, S, mesh, local_impl="lane", eager=eager)
+
+    conds = body_makes_no_host_read(dev, lambda: body(True))
+    check(conds == 0, f"the lane body recorded {conds} conds")
+    phase("config5", "the body after the plan under the capture flag, sync debug mode "
+                     "error: no host read, 0 conds")
+
+    ranges, wants = sample_key_ranges(r_np["key"]), []
+    for lo, hi in ranges:
+        wants.append(oracle_rows(slice_by_key(r_np, lo, hi), slice_by_key(s_np, lo, hi)))
+    check(len(ranges) == 4, f"{len(ranges)} key ranges sampled")
+
+    def checked(out, ovf) -> int:
+        """Overflow 0, numpy's count, the oracle's key-range slices; the
+        result's multiset checksum."""
+        check(int(ovf.sum()) == 0, f"overflow {ovf.tolist()}")
+        got = int(out.shard_rows.sum())
+        check(got == n, f"num_rows {got} != numpy's {n}")
+        for (lo, hi), want in zip(ranges, wants):
+            parts = []
+            for t in out.shards:
+                k = t.col("key")
+                m = t.valid_mask() & (k >= lo) & (k < hi)
+                parts.append({c: v[m].cpu().numpy() for c, v in t.columns.items()})
+            mine = canon({c: np.concatenate([p[c] for p in parts]) for c in parts[0]})
+            check(tables_equal(mine, want), f"key range [{lo}, {hi}) differs from the oracle")
+        return sum(int(multiset_checksum(t)) for t in out.shards) & M64
+
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    out, ovf = dist_hash_join_planned(R, S, mesh, local_impl="lane")
+    out, ovf = planned(True)
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: w.launches for k, w in ws.items()}
-    phase("config5", f"one planned join (ex_cap {ex_cap}, out_cap {out_cap} per "
+    phase("config5", f"one planned join, eager (ex_cap {ex_cap}, out_cap {out_cap} per "
                      f"shard): launches {launches}; peak memory {peak} B")
     expect = {"radix_histogram", "pad", "pack", "fused_walk_emit", "hash_keys"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
@@ -1621,35 +1790,17 @@ def config5_phase(dev, K, cfg):
           f"{launches['hash_keys']} hash launches, expected {HASH_LAUNCHES['dist']}")
     check(launches["radix_histogram"] == 2 * mesh.size,
           f"{launches['radix_histogram']} histogram launches, expected {2 * mesh.size}")
-    check(int(ovf.sum()) == 0, f"overflow {ovf.tolist()}")
-    got = int(out.shard_rows.sum())
-    check(got == n, f"num_rows {got} != numpy's {n}")
-
-    ranges, sizes = sample_key_ranges(r_np["key"]), []
-    for lo, hi in ranges:
-        parts = []
-        for t in out.shards:
-            k = t.col("key")
-            m = t.valid_mask() & (k >= lo) & (k < hi)
-            parts.append({c: v[m].cpu().numpy() for c, v in t.columns.items()})
-        mine = canon({c: np.concatenate([p[c] for p in parts]) for c in parts[0]})
-        want = oracle_rows(slice_by_key(r_np, lo, hi), slice_by_key(s_np, lo, hi))
-        check(tables_equal(mine, want), f"key range [{lo}, {hi}) differs from the oracle")
-        sizes.append(len(want["key"]))
-    check(len(ranges) == 4, f"{len(ranges)} key ranges sampled")
+    ck_dist = checked(out, ovf)
     phase("config5", f"overflow 0; num_rows {n} == numpy count; 4 key ranges "
-                     f"({', '.join(map(str, sizes))} output rows) byte-equal to the "
-                     f"C++ oracle")
-
-    ck_dist = sum(int(multiset_checksum(t)) for t in out.shards) & M64
-    del out
+                     f"({', '.join(str(len(w['key'])) for w in wants)} output rows) "
+                     f"byte-equal to the C++ oracle")
+    del out, ovf
 
     # the same join once more, every kernel call held as it is made
     # against its plain version on the same inputs (the build PAD of
     # 33.5M rows, the walk/emit over u 50,331,648 queries of D 48)
     t0 = time.perf_counter()
-    held, largest, walk_ms = hold_kernel_calls(
-        lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"))
+    held, largest, walk_ms = hold_kernel_calls(lambda: planned(True))
     for name, (calls, err) in held.items():
         check(calls == launches[name], f"{name}: {calls} calls held, "
                                        f"{launches[name]} launched")
@@ -1668,12 +1819,24 @@ def config5_phase(dev, K, cfg):
     del largest
     torch.cuda.empty_cache()
 
-    t_join = cuda_time(lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"),
-                       dev, 3)[0] * 1e3
+    # the planned join with its body jitted (tpq's shard_map program)
+    def checked_same(out, ovf):
+        ck = checked(out, ovf)
+        check(ck == ck_dist, f"jitted checksum {ck:#x} != eager {ck_dist:#x}")
+
+    rec = jitted_dist_join(dev, "config5", mesh, lambda: planned(True),
+                           lambda: planned(False), checked_same,
+                           bodies=(lambda: body(True), lambda: body(False)))
     t_plan = cuda_time(lambda: plan_dist_capacities(R, S, mesh), dev, 3)[0] * 1e3
-    phase("config5", f"end_to_end {t_join:.4f} ms per planned join (planning "
-                     f"{t_plan:.4f} ms of it), mean of 3 after a warm-up; "
-                     f"{n / (t_join / 1e3):.6e} join rows/s")
+    t_body_j = cuda_time(lambda: body(False), dev, 3)[0] * 1e3
+    mesh.clear()
+    t_body_e = cuda_time(lambda: body(True), dev, 3)[0] * 1e3
+    e2e = {f: [r["end_to_end_ms"] for r in rows] for f, rows in rec["turns"].items()}
+    phase("config5", f"planning {t_plan:.4f} ms, body eager {t_body_e:.4f} ms, jitted "
+                     f"{t_body_j:.4f} ms (each the mean of 3 after a warm-up); planned "
+                     f"end to end eager " + ", ".join(f"{t:.4f}" for t in e2e["eager"])
+          + ", jitted " + ", ".join(f"{t:.4f}" for t in e2e["jitted"]) + " ms; "
+          f"{n / (min(e2e['jitted']) / 1e3):.6e} join rows/s jitted")
     del R, S
 
     # the single-card lane join of the same relations. Its output
@@ -1707,6 +1870,8 @@ def config5_phase(dev, K, cfg):
     phase("config5", f"multiset checksum {ck_dist:#018x} equal to the single-card "
                      f"lane join's (npart {plan.npart}, D {plan.depth}, out capacity "
                      f"{cap1}; {t_one:.4f} ms per join, mean of 2 after a warm-up)")
+    rec.update(plan_ms=t_plan, body_ms={"eager": t_body_e, "jitted": t_body_j})
+    phase("config5", "summary " + json.dumps(rec))
     return launches
 
 
@@ -1754,12 +1919,32 @@ def counted_held_join(dev, label, mesh, join, want_rows, expect):
     return launches
 
 
+def bench_join_checker(label, mesh, want_rows):
+    """check_result for a bench join: overflow 0 and `want_rows` rows."""
+    from tpq_torch.bench.scaling import joined_rows
+
+    def check_result(out, ovf):
+        got = joined_rows(out, mesh)
+        check(int(ovf.sum()) == 0 and got == want_rows,
+              f"{label}: overflow {ovf.tolist()}, {got} rows of {want_rows}")
+    return check_result
+
+
+def bench_records_jitted(label, rows):
+    """Every record of a bench run on the card says it ran jitted, its
+    graph captured once and never rerun."""
+    for r in rows:
+        check(r["jitted"] and r["captures"] == 1 and r["reruns"] == 0,
+              f"{label}: record {r} not run as one graph without a rerun")
+
+
 def scaling_phase(dev):
     """The weak-scaling bench at 2^24 rows a shard on 1, 2, 4 and 8
     shards of the card: first one join at 8 shards (134M x 134M, the
-    bench's arguments) counted and held (counted_held_join), then the
-    bench, each size's overflow 0 and num_rows equal to a count made
-    without the join. Returns the counted join's launches."""
+    bench's arguments) counted and held (counted_held_join), eager, and
+    jitted against eager (jitted_dist_join); then the bench, jitted,
+    each size's overflow 0 and num_rows equal to a count made without the
+    join. Returns the counted join's launches and the jitted record."""
     from tpq_torch.bench.scaling import place_uniform, run_weak_scaling, true_join_rows
     from tpq_torch.dist import dist_hash_join, make_mesh
 
@@ -1767,26 +1952,35 @@ def scaling_phase(dev):
     mesh = make_mesh(n, dev)
     R = place_uniform(per * n, per * n, 1, 77, mesh)
     S = place_uniform(per * n, per * n, 1, 78, mesh)
+    want = true_join_rows(per * n, per * n, 77, 78, dev)
     launches = counted_held_join(
         dev, "scaling", mesh,
+        lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, eager=True),
+        want, DIST_BENCH_LAUNCHES["scaling"])
+    rec = jitted_dist_join(
+        dev, "scaling", mesh,
+        lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, eager=True),
         lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per),
-        true_join_rows(per * n, per * n, 77, 78, dev), DIST_BENCH_LAUNCHES["scaling"])
+        bench_join_checker("scaling", mesh, want))
     del R, S
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rows = run_weak_scaling(rows_per_chip=per, mesh_sizes=(1, 2, 4, 8), device=dev)
     check([r["n_chips"] for r in rows] == [1, 2, 4, 8], "a mesh size did not run")
+    bench_records_jitted("scaling", rows)
     name = torch.cuda.get_device_name(dev)
     for r in rows:
         check(r["mesh"] == "local" and r["cards"] == 1 and r["device"] == name,
               f"record {r} does not name its one-card local mesh")
         phase("scaling", f"{r['n_chips']} shards on one card, {r['rows_total']} x "
                          f"{r['rows_total']} rows: {r['num_rows']} rows == the count "
-                         f"without the join; {r['elapsed_ms']:.4f} ms, "
+                         f"without the join; jitted (1 capture, 0 reruns) "
+                         f"{r['elapsed_ms']:.4f} ms, "
                          f"{r['rows_per_sec_per_chip']:.6e} rows/s on the card, efficiency "
                          f"{r['efficiency']:.4f}")
     phase("scaling", f"{time.perf_counter() - t0:.1f} s")
+    phase("scaling", "summary " + json.dumps(rec))
     torch.cuda.empty_cache()
     return launches
 
@@ -1794,8 +1988,9 @@ def scaling_phase(dev):
 def overlap_phase(dev):
     """The overlap matrix at 8 shards of 2^24 rows, out capacity 2^26 a
     shard: first one dense_4chunks and one ring_hops join (the matrix's
-    relations) each counted and held (counted_held_join), then the
-    matrix, every variant's num_rows equal to the dense one's; on one
+    relations) each counted and held (counted_held_join), eager; each
+    variant jitted against eager (jitted_dist_join); then the matrix,
+    jitted, every variant's num_rows equal to the dense one's; on one
     card chunks and hops run in order, so it shows what they cost, not
     overlap. Returns the counted joins' launches by variant."""
     from tpq_torch.bench.overlap_bench import VARIANTS, run_overlap_matrix
@@ -1807,13 +2002,20 @@ def overlap_phase(dev):
     R = place_uniform(per * n, per * n, 1, 71, mesh)
     S = place_uniform(per * n, per * n, 1, 72, mesh)
     want = true_join_rows(per * n, per * n, 71, 72, dev)
-    launches = {}
-    for variant, kw in VARIANTS[1:]:
+    launches, recs = {}, {}
+    for variant, kw in VARIANTS:
         path = f"overlap_{variant}"
-        launches[path] = counted_held_join(
-            dev, path, mesh,
-            lambda kw=kw: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, **kw),
-            want, DIST_BENCH_LAUNCHES[path])
+
+        def join(eager, kw=kw):
+            return dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, eager=eager,
+                                  **kw)
+
+        if path in DIST_BENCH_LAUNCHES:
+            launches[path] = counted_held_join(dev, path, mesh, lambda: join(True), want,
+                                               DIST_BENCH_LAUNCHES[path])
+        recs[variant] = jitted_dist_join(dev, path, mesh, lambda: join(True),
+                                         lambda: join(False),
+                                         bench_join_checker(path, mesh, want))
     del R, S
     torch.cuda.empty_cache()
 
@@ -1821,13 +2023,15 @@ def overlap_phase(dev):
     rows = run_overlap_matrix(mesh, rows_per_shard=per, out_capacity_per_shard=4 * per)
     check([r["variant"] for r in rows] == ["dense_1chunk", "dense_4chunks", "ring_hops"],
           "a variant did not run")
+    bench_records_jitted("overlap", rows)
     for r in rows:
         check(r["mesh"] == "local" and r["num_rows"] == want, f"record {r}")
         phase("overlap", f"{r['variant']}: {r['num_rows']} rows of {r['rows_total']} in "
                          f"(equal in every variant and to the count without the join), "
-                         f"best of 3 {r['elapsed_ms']} ms, {r['vs_dense_1chunk']} of "
-                         f"dense_1chunk")
+                         f"jitted (1 capture, 0 reruns), best of 3 {r['elapsed_ms']} ms, "
+                         f"{r['vs_dense_1chunk']} of dense_1chunk")
     phase("overlap", f"{time.perf_counter() - t0:.1f} s")
+    phase("overlap", "summary " + json.dumps(recs))
     torch.cuda.empty_cache()
     return launches
 

@@ -20,7 +20,7 @@ from tpq_torch.dist.mesh import OWNER_SALT, owner_of
 from tpq_torch.hashing import hash_keys, hash_keys_ref, np_hash_keys
 from tpq_torch.jit import jit
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
-                                     fused_walk_emit_ref, plan_lane2)
+                                     fused_walk_emit_ref, lane2_probe_emit, plan_lane2)
 from tpq_torch.kernels import lane_table, move
 from tpq_torch.kernels.lane_table import (SALT_H2, SALT_LANE, LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
@@ -889,3 +889,134 @@ def test_look_back_epoch_advances_on_the_card_and_wraps(dev, kernel):
         torch.cuda.synchronize(dev)
     finally:
         move._PACK_STATE.pop(key, None)
+
+
+# ---------------------------------------------------------------------------
+# jit's hand-off and in-place state, the sorts under a graph, and the
+# distributed join's jitted body
+# ---------------------------------------------------------------------------
+
+def test_jit_hand_off_feeds_the_next_program_without_a_copy(dev):
+    """A generator handing its chunk over (hand_off) to a probe that
+    hands its counts over: the probe's graph reads the generator's own
+    outputs in place, so 5 chunks copy nothing in, and each chunk's
+    count equals the eager bodies'."""
+    r = datagen.gen_relation(60_000, 65_536, payloads=1, seed=3, device=dev)
+    plan = plan_lane2(r.capacity, 1 << 16, out_capacity=1 << 17)
+    tables = build_lane2_tables(r, plan)
+
+    def gen_body(d, off):
+        return datagen.gen_relation_device(1 << 16, 65_536, 1, seed=4, capacity=1 << 16,
+                                           row_offset=off, device=d).columns
+
+    def probe_body(tables, cols, rows):
+        out, ok = lane2_probe_emit(tables, Table(cols, rows), 1 << 17)
+        return out.num_rows, ok
+
+    gen_j, probe_j = jit(gen_body, hand_off=True), jit(probe_body, hand_off=True)
+    for ci in range(5):
+        rows = 60_000 - 1000 * ci
+        got_n, got_ok = probe_j(tables, gen_j(dev, ci << 16), rows)
+        want_n, want_ok = probe_body(tables, gen_body(dev, ci << 16), rows)
+        assert int(got_n) == int(want_n) > 0 and bool(got_ok) and bool(want_ok)
+    assert (gen_j.copies, probe_j.copies) == (0, 0)
+    assert (gen_j.captures, probe_j.captures) == (1, 1)
+    assert probe_j.reruns == 0
+
+
+def test_jit_default_result_survives_the_next_call(dev):
+    """jit(fn) without hand_off returns fresh tensors: a result kept
+    across the callable's next call (on other inputs) is unchanged."""
+    jitted = jit(_lane)
+    r, s = _lane_join_inputs(dev, 36)
+    r2, s2 = _lane_join_inputs(dev, 37)
+    first = jitted(r, s)
+    kept = {k: c[:int(first.num_rows)].clone() for k, c in first.columns.items()}
+    second = jitted(r2, s2)
+    assert tables_equal(canonicalize(second), canonicalize(_lane(r2, s2)))
+    for k, c in kept.items():
+        assert torch.equal(first.columns[k][:int(first.num_rows)], c), k
+    assert tables_equal(canonicalize(first), canonicalize(_lane(r, s)))
+
+
+def test_jit_carried_state_updated_in_place_is_exact(dev):
+    """A state carried across chunks and updated in place by the body
+    (jit's `updates`), as config 4's accumulator: over 5 chunks, the
+    first call's capture included, the jitted state equals the eager
+    loop's (the warm-up updates a copy), and no call copies the state."""
+    n = 1 << 20
+
+    def step(state, x):
+        for a, b in zip(state, (x, x * 3)):
+            a.add_(b)
+        return state
+
+    jitted = jit(step, hand_off=True, updates=(0,))
+    got = [torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    want = [torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    x = torch.empty(n, dtype=torch.int64, device=dev)  # each chunk lands here
+    for c in range(5):
+        x.copy_(torch.arange(n, dtype=torch.int64, device=dev) * (c + 1))
+        assert all(a is b for a, b in zip(jitted(got, x), got))
+        step(want, x)
+        for a, b in zip(got, want):
+            _eq(a, b)
+    assert (jitted.copies, jitted.captures, jitted.reruns) == (0, 1, 0)
+
+
+@pytest.mark.parametrize("site", ["build", "probe_layout", "sort_rows"])
+def test_sort_sites_under_a_graph_equal_eager(dev, site):
+    """The three sorts whose device copies a graph runs as memcpy nodes
+    (the build's composite sort, the probe layout's partition sort,
+    sort_rows under the aggregate), captured and replayed on new inputs:
+    every output byte-equal to the eager call's."""
+    from tpq_torch.kernels.radix_sort import sort_rows
+
+    plan = plan_lane2(1 << 20, 1 << 20, out_capacity=1 << 21)
+    body = {"build": lambda t: build_lane2_tables(t, plan),
+            "probe_layout": lambda t: _probe_layout(plan, t, "key"),
+            "sort_rows": lambda t: sort_rows(t)}[site]
+    jitted = jit(body)
+    for seed in (40, 41):
+        t = datagen.gen_relation(1_000_000, 1 << 20, payloads=1, seed=seed, device=dev)
+        got, want = jitted(t), body(t)
+        flat_got, flat_want = [], []
+        for out, flat in ((got, flat_got), (want, flat_want)):
+            if isinstance(out, Table):
+                flat += [out.num_rows, *(c[:int(out.num_rows)] for c in out.columns.values())]
+            elif isinstance(out, tuple):
+                for x in out:
+                    flat += x if isinstance(x, list) else [x]
+            else:
+                flat += [out.key, *out.pays, out.occ, out.blen, out.ok]
+        assert len(flat_got) == len(flat_want)
+        for a, b in zip(flat_got, flat_want):
+            _eq(a, b)
+    assert jitted.reruns == 0
+
+
+@pytest.mark.parametrize("impl", ["dense", "ring"])
+def test_jitted_dist_join_equals_its_eager_body(dev, impl):
+    """The 8-shard join at 2^16 rows a shard through its jitted body (one
+    CUDA graph, results handed over) on two calls, each shard's rows
+    equal to the eager body's; the graph captured once, no rerun."""
+    from tpq_torch.dist import dist_hash_join, jitted_join
+
+    mesh = make_mesh(8, dev)
+    n = 8 << 16
+    R = DistTable.from_numpy(datagen.gen_relation_np(n, n, payloads=1, seed=5), mesh)
+    S = DistTable.from_numpy(datagen.gen_relation_np(n, n, payloads=1, seed=6), mesh)
+    kw = {"out_capacity_per_shard": 1 << 18, "exchange_impl": impl}
+    want, want_ovf = dist_hash_join(R, S, mesh, eager=True, **kw)
+    want = [Table.from_numpy(x, device="cpu") for x in want.shards_numpy()]
+    for _ in range(2):
+        got, ovf = dist_hash_join(R, S, mesh, **kw)
+        assert torch.equal(ovf, want_ovf) and int(ovf.sum()) == 0
+        for a, b in zip(got.shards_numpy(), want):
+            assert tables_equal(canonicalize(Table.from_numpy(a, device="cpu")),
+                                canonicalize(b))
+    prog = jitted_join(mesh, **{**dict(exchange_capacity=None, algo="hash", key="key",
+                                       skew=None, n_chunks=1, local_impl="sorted",
+                                       lane_depth=48), **kw})
+    assert (prog.captures, prog.reruns, prog.copies) == (1, 0, 0)
+    mesh.clear()

@@ -176,7 +176,7 @@ def test_scale_programs_make_no_host_read(monkeypatch, which):
     graph's scalars reach it on the card; the run stays exact."""
     ran = []
 
-    def capturable(fn):
+    def capturable(fn, **options):  # hand_off, updates: one run a call here
         def call(*args):
             args = tuple(torch.tensor(a) if isinstance(a, int) and not isinstance(a, bool)
                          else a for a in args)

@@ -10,20 +10,27 @@
           10 calls after 3 warm-ups: every device item by name (launches
           and ms a call) in both forms, largest difference first, with
           the ops (and their tpq_torch lines) that launched it eagerly.
-  peak  — the peak device memory of one 8-shard join of the scaling
-          bench and one of the overlap matrix's dense_4chunks join, with
-          the allocator's history recorded: the blocks live at the peak,
-          summed by the innermost tpq_torch frame that allocated them.
+  peak  — the peak device memory of one eager 8-shard join of the
+          scaling bench and one of the overlap matrix's dense_4chunks
+          join, with the allocator's history recorded: the blocks live at
+          the peak, summed by the innermost tpq_torch frame that
+          allocated them.
   copy  — one device-to-device copy of 2^27 int64 (config 4's sort
           width), eager and as the one node of a CUDA graph, and an
           elementwise kernel that copies the same bytes inside a graph:
           each one's device ms, in turns, and the device item it runs.
+  sort  — one stable sort of 2^27 int64 keys (the probe layout's and
+          sort_rows' width at config 4) in each torch call pattern that
+          computes it (torch.sort, into given buffers, in place, argsort):
+          the device copies each makes eagerly, with the ops that made
+          them, and as a CUDA graph, with every device item's ms.
 
 CLI (needs a card):
   python -m tpq_torch.bench.diagnose calls --config=single_chip_1m
   python -m tpq_torch.bench.diagnose items --config=pipeline_100m
   python -m tpq_torch.bench.diagnose peak
   python -m tpq_torch.bench.diagnose copy
+  python -m tpq_torch.bench.diagnose sort
 each prints one JSON line with the card's name and power limit.
 """
 
@@ -210,7 +217,8 @@ def peak_main(args) -> dict:
         R = place_uniform(per * n, per * n, 1, seeds[0], mesh)
         S = place_uniform(per * n, per * n, 1, seeds[1], mesh)
         report[label] = peak_of(
-            lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, **kw), dev)
+            lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=4 * per, eager=True,
+                                   **kw), dev)
         del R, S
         torch.cuda.empty_cache()
     return report
@@ -250,6 +258,35 @@ def copy_main(args) -> dict:
             "items": {n: device_items(f, dev)[0] for n, f in forms.items()}}
 
 
+def is_copy(name: str) -> bool:
+    """Whether a device item is a memcpy (a graph's memcpy node or an
+    eager cudaMemcpyAsync), by the name the trace gives it."""
+    return name.startswith("Memcpy")
+
+
+def sort_main(args) -> dict:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    keys = torch.randint(0, 513, (COPY_ELEMENTS,), dtype=torch.int64, device=dev,
+                         generator=gen)
+    vals, idx, work = torch.empty_like(keys), torch.empty_like(keys), keys.clone()
+    forms = {"sort": lambda: torch.sort(keys, stable=True),
+             "sort_out": lambda: torch.sort(keys, stable=True, out=(vals, idx)),
+             "sort_in_place": lambda: torch.sort(work, stable=True, out=(work, idx)),
+             "argsort": lambda: torch.argsort(keys, stable=True)}
+    report = {"card": card_info(), "elements": COPY_ELEMENTS, "forms": {}}
+    for name, fn in forms.items():
+        eager, by = device_items(fn, dev, stacks=True)
+        graph, _ = device_items(graphed(fn, dev), dev)
+        report["forms"][name] = {
+            "eager_copies": {n: v for n, v in eager.items() if is_copy(n)},
+            "eager_copies_launched_by": {n: by.get(n, {}) for n in eager if is_copy(n)},
+            "graph_copies": {n: v for n, v in graph.items() if is_copy(n)},
+            "eager_items": eager, "graph_items": graph}
+        torch.cuda.empty_cache()
+    return report
+
+
 def main(argv=None):
     import argparse
 
@@ -259,11 +296,12 @@ def main(argv=None):
     add_join_args(sub.add_parser("items"))
     sub.add_parser("peak")
     sub.add_parser("copy")
+    sub.add_parser("sort")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tpq_torch.bench.diagnose measures on a CUDA card; none is visible")
     report = {"calls": calls_main, "items": items_main, "peak": peak_main,
-              "copy": copy_main}[args.what](args)
+              "copy": copy_main, "sort": sort_main}[args.what](args)
     print(json.dumps(report))
     return report
 

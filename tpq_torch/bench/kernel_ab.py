@@ -194,7 +194,7 @@ def preset_join(config: str, device):
 
     cfg = PRESETS[config]
     if cfg.mesh_shape:
-        return dist_join_fn(cfg, device)[0]
+        return dist_join_fn(cfg, device, eager=True)[0]
     r, s = gen(cfg.r, device), gen(cfg.s, device)
     return join_fn(cfg, r, s, out_capacity_for(cfg)).eager
 

@@ -7,8 +7,10 @@ events around unprofiled joins, so the profiler's own host cost does not
 stretch it.
 
 A single-card join or pipeline runs jitted (the bench runner's join_fn:
-one CUDA graph replayed a call); `--eager` runs the same body eagerly,
-one host read a cond.
+one CUDA graph replayed a call), and so does a mesh preset's
+distributed join after its plan (dist_hash_join's jitted body; the
+planner stays eager); `--eager` runs the same bodies eagerly, one host
+read a cond.
 
 CLI (needs a card), with the bench runner's preset and join options:
   python -m tpq_torch.bench.profile --config=zipf_skew [--eager]
@@ -18,7 +20,9 @@ CLI (needs a card), with the bench runner's preset and join options:
   python -m tpq_torch.bench.profile --config=pipeline_100m
 (a pipeline preset runs its filter -> join -> aggregate pipeline; a
 preset with a mesh shape runs dist_hash_join_planned(local_impl=
-"lane") on a one-process mesh of that many shards on the card)
+"lane") on a one-process mesh of that many shards on the card, and also
+times its planning and its body apart: `plan_ms` and `body_ms`, end to
+end being plan + body)
 prints one JSON object: end-to-end ms per join, device busy ms per join,
 the device's idle share of the join (1 - busy / end to end), device
 activities per join, the TOP largest device items by name and every
@@ -78,11 +82,13 @@ def busy_us(acts) -> float:
     return total
 
 
-def profile_join(fn, device) -> dict:
-    e2e_s, _ = cuda_time(fn, device, JOINS, warmup=3)
+def profile_join(fn, device, joins: int = JOINS, warmup: int = 3) -> dict:
+    """End to end over `joins` calls after `warmup` calls, then the trace
+    of `joins` more (the keys of the report main prints)."""
+    e2e_s, _ = cuda_time(fn, device, joins, warmup=warmup)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(JOINS):
+        for _ in range(joins):
             fn()
         torch.cuda.synchronize(device)
     acts = device_activities(prof)
@@ -93,7 +99,7 @@ def profile_join(fn, device) -> dict:
         rec = by_name.setdefault(name, [0, 0.0])
         rec[0] += 1
         rec[1] += e - s
-    busy_ms = busy_us(acts) / 1e3 / JOINS
+    busy_ms = busy_us(acts) / 1e3 / joins
     e2e_ms = e2e_s * 1e3
     items = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     port = {}
@@ -101,28 +107,38 @@ def profile_join(fn, device) -> dict:
         k = port_kernel(name)
         if k is not None:
             rec = port.setdefault(k, {"launches_per_join": 0.0, "ms_per_join": 0.0})
-            rec["launches_per_join"] += c / JOINS
-            rec["ms_per_join"] += t / 1e3 / JOINS
+            rec["launches_per_join"] += c / joins
+            rec["ms_per_join"] += t / 1e3 / joins
     return {
         "end_to_end_ms": e2e_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / e2e_ms,
-        "device_activities_per_join": len(acts) / JOINS,
-        "top": [{"name": n[:120], "launches_per_join": c / JOINS,
-                 "ms_per_join": t / 1e3 / JOINS} for n, (c, t) in items[:TOP]],
+        "device_activities_per_join": len(acts) / joins,
+        "top": [{"name": n[:120], "launches_per_join": c / joins,
+                 "ms_per_join": t / 1e3 / joins} for n, (c, t) in items[:TOP]],
         "port_kernels": port,
     }
 
 
-def dist_join_fn(cfg, device):
+def dist_join_fn(cfg, device, eager: bool = False):
     """The planned lane dist join of a mesh preset, on a one-process mesh
-    of cfg.mesh_shape[0] shards on `device`."""
-    from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh
+    of cfg.mesh_shape[0] shards on `device`, its body jitted unless
+    `eager`. Returns (the planned join, what it is, {"plan": the planner
+    alone, "body": the body alone at the planned capacities}); the body
+    is the planned join's own jitted callable."""
+    from tpq_torch.dist import (DistTable, dist_hash_join, dist_hash_join_planned,
+                                make_mesh, plan_dist_capacities)
 
     mesh = make_mesh(cfg.mesh_shape[0], device)
     R, S = (DistTable.from_numpy(gen_np(x), mesh) for x in (cfg.r, cfg.s))
-    return (lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane"),
-            f"dist_hash_join_planned(local_impl='lane') on {mesh}")
+    ex_cap, out_cap = plan_dist_capacities(R, S, mesh)
+    parts = {"plan": lambda: plan_dist_capacities(R, S, mesh),
+             "body": lambda: dist_hash_join(R, S, mesh, out_capacity_per_shard=out_cap,
+                                            exchange_capacity=ex_cap, local_impl="lane",
+                                            eager=eager)}
+    return (lambda: dist_hash_join_planned(R, S, mesh, local_impl="lane", eager=eager),
+            f"dist_hash_join_planned(local_impl='lane') on {mesh}, "
+            + ("eager" if eager else "its body jitted"), parts)
 
 
 def main(argv=None):
@@ -138,8 +154,9 @@ def main(argv=None):
 
     cfg = config_from_args(args)
     dev = torch.device("cuda")
+    parts = {}
     if cfg.mesh_shape:
-        fn, what = dist_join_fn(cfg, dev)
+        fn, what, parts = dist_join_fn(cfg, dev, eager=args.eager)
     else:
         r, s = gen(cfg.r, dev), gen(cfg.s, dev)
         j = cfg.join
@@ -153,6 +170,8 @@ def main(argv=None):
         what += ", eager" if args.eager else ", jitted"
     report = {"config": cfg.name, "join": what, "card": card_info(),
               **profile_join(fn, dev)}
+    for name, part in parts.items():
+        report[f"{name}_ms"] = cuda_time(part, dev, 3)[0] * 1e3
     print(json.dumps(report))
     return report
 

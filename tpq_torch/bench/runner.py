@@ -20,7 +20,7 @@ CLI:  python -m tpq_torch.bench.runner --config=single_chip_1m [--phases]
       [--check BASELINE_JSON [--tolerance 0.25]] [--device cuda|cpu]
       python -m tpq_torch.bench.runner --config=pipeline_100m
       python -m tpq_torch.bench.runner --scaling 1,2,4,8
-      [--rows-per-chip N] [--exchange dense|ragged|ring] [--n-chunks N]
+      [--rows-per-chip N] [--exchange dense|ragged|ring] [--n-chunks N] [--eager]
 prints the bench.py one-line JSON as its last line: probe rows/s under
 the metric hash_join_probe_rows_per_sec_1chip_torch, fact rows/s of the
 pipeline under pipeline_fact_rows_per_sec_1chip_torch, or the weak
@@ -312,13 +312,13 @@ def scaling_main(args, dev: torch.device) -> dict:
         rows = run_weak_scaling(rows_per_chip=args.rows_per_chip,
                                 mesh_sizes=tuple(int(x) for x in args.scaling.split(",")),
                                 exchange_impl=args.exchange, n_chunks=args.n_chunks,
-                                device=dev, process_group=grouped)
+                                device=dev, process_group=grouped, eager=args.eager)
     finally:
         if grouped:
             torch.distributed.destroy_process_group()
     print(markdown_table(rows, ["n_chips", "rows_total", "elapsed_ms",
                                 "rows_per_sec_per_chip", "efficiency", "mesh", "cards",
-                                "device"]), file=sys.stderr)
+                                "device", "jitted"]), file=sys.stderr)
     report = {"scaling": rows, "card": card_info() if dev.type == "cuda" else None}
     if args.json_out:
         emit_json(args.json_out, report)
@@ -354,12 +354,18 @@ def main(argv=None):
                    help="allowed fractional slowdown in --check mode")
     p.add_argument("--device", default="cuda",
                    help="cpu runs without times (the metric's value is null)")
+    p.add_argument("--eager", action="store_true",
+                   help="with --scaling: run the distributed join's body eagerly, "
+                        "not as its CUDA graph")
     args = p.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         sys.exit("tpq_torch.bench.runner measures on a CUDA card; none is visible")
     if args.phases and dev.type != "cuda":
         p.error("--phases times the lane join's phases on a card")
+    if args.eager and not args.scaling:
+        p.error("--eager goes with --scaling (bench.profile --eager times a preset's "
+                "body eagerly)")
     if args.log_jsonl:
         GLOBAL_LOG.path = args.log_jsonl
     if args.scaling:

@@ -13,11 +13,14 @@ Both benches:
     one generator graph and one chunk graph serve every chunk, the
     chunk's row offset and row count traced (the short last chunk's count
     goes in as its Table's num_rows, as tpq passes it);
-  * warm every program up off the clock on two chunks (config 4's
-    finalize on two states), so that a program whose argument lies
-    elsewhere at its second call is captured again, with that argument
-    copied in (jit.py), before the clock starts: the timed loop captures
-    nothing (`loop_captures`);
+  * hand each program's outputs to the next program as they lie (jit's
+    `hand_off`: the build's tables and the generator's chunk to the
+    probe, the probe's rows to config 4's aggregate), so that no program
+    copies a chunk in or out; config 4's dense accumulator is one set of
+    buffers that the aggregate updates in place (jit's `updates`, tpq's
+    donated state), zeroed when a loop starts;
+  * warm every program up off the clock on two chunks, so that the timed
+    loop captures nothing (`loop_captures`);
   * check the result against numpy ground truth from the same streams,
     outside the timed window: the join's count for config 2, every
     group's count and sums for config 4;
@@ -97,9 +100,10 @@ def _consume(t: Table) -> torch.Tensor:
     return acc
 
 
-def _program(fn, eager: bool):
-    """One of tpq's jitted programs: jit(fn), or fn itself when eager."""
-    return fn if eager else jit(fn)
+def _program(fn, eager: bool, **options):
+    """One of tpq's jitted programs: jit(fn, **options), or fn itself
+    when eager."""
+    return fn if eager else jit(fn, **options)
 
 
 def _timed_loop(loop, dev: torch.device, programs: dict, chunk_programs,
@@ -170,7 +174,9 @@ def bench_build_sweep(n_build: int = 10_000_000, n_probe: int = 100_000_000,
     # ~1 match per probe row at these key domains, 1.25x slack
     out_cap = chunk_rows + chunk_rows // 4
     plan = plan_lane2(r_cap, chunk_rows, out_capacity=out_cap)
-    build = _program(lambda t: build_lane2_tables(t, plan), eager)
+    # handed off too: the timed build rewrites the warm-up's tables with
+    # the same rows, and times the build, not a fresh copy's allocation
+    build = _program(lambda t: build_lane2_tables(t, plan), eager, hand_off=True)
     r_names = [n for n in R.names if n != "key"]
     r_dtypes = [R.col(n).dtype for n in r_names]
     nchunks = -(-n_probe // chunk_rows)
@@ -178,14 +184,14 @@ def bench_build_sweep(n_build: int = 10_000_000, n_probe: int = 100_000_000,
     # one generator serves every chunk: its row offset is traced
     gen_chunk = _program(lambda d, off: datagen.gen_relation_device(
         chunk_rows, n_build, payloads, seed=2, capacity=chunk_rows, row_offset=off,
-        device=d).columns, eager)
+        device=d).columns, eager, hand_off=True)
 
     def probe_body(tables, s_cols, s_rows):
         out, ok = lane2_probe_emit(tables, Table(s_cols, s_rows), out_cap,
                                    r_names=r_names, r_dtypes=r_dtypes)
         return out.num_rows.to(I64), _consume(out), ok
 
-    probe_chunk = _program(probe_body, eager)
+    probe_chunk = _program(probe_body, eager, hand_off=True)
     programs = {"gen_r": gen_r, "build": build, "gen_chunk": gen_chunk,
                 "probe_chunk": probe_chunk}
 
@@ -206,14 +212,15 @@ def bench_build_sweep(n_build: int = 10_000_000, n_probe: int = 100_000_000,
     del tables2
 
     def loop():
+        # a chunk's outputs hold until its programs' next call: each is
+        # folded into the loop's own tensors at once
         total = torch.zeros((), dtype=I64, device=dev)
         acc = torch.zeros((), dtype=I64, device=dev)
-        oks = []
+        oks = torch.ones((), dtype=torch.bool, device=dev)
         for ci in range(nchunks):
             rows_c, acc_c, ok = chunk(tables, ci)
-            total, acc = total + rows_c, acc ^ acc_c
-            oks.append(ok)
-        return int(total), oks
+            total, acc, oks = total + rows_c, acc ^ acc_c, oks & ok
+        return int(total), bool(oks)
 
     (total, oks), loop_stats = _timed_loop(loop, dev, programs,
                                           ("gen_chunk", "probe_chunk"), nchunks, profile)
@@ -228,7 +235,7 @@ def bench_build_sweep(n_build: int = 10_000_000, n_probe: int = 100_000_000,
         "build_ms": None if t_build is None else t_build * 1e3,
         **loop_stats,
         "out_rows": total,
-        "lane_path_taken_all_chunks": all(bool(o) for o in oks),
+        "lane_path_taken_all_chunks": oks,
         "hbm_bw_gbps": hbm_bw,
     }
     ncols = payloads + 1
@@ -323,10 +330,10 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
     plan = plan_lane2(dim_cap, eff_s_cap, out_capacity=out_cap)
     r_names = [n for n in dim.names if n != "key"]
     r_dtypes = [dim.col(n).dtype for n in r_names]
-    build = _program(lambda t: build_lane2_tables(t, plan), eager)
+    build = _program(lambda t: build_lane2_tables(t, plan), eager, hand_off=True)
     gen_chunk = _program(lambda d, off: datagen.gen_relation_device(
         chunk_rows, n_dim, fact_payloads, seed=2, capacity=chunk_rows, row_offset=off,
-        device=d).columns, eager)
+        device=d).columns, eager, hand_off=True)
     n_state = next_pow2(min(filter_value, n_dim))
     vnames = (["count"] + [f"sum_r_{n}" for n in r_names]
               + [f"sum_s_p{j}" for j in range(fact_payloads)])
@@ -340,10 +347,14 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
         return dict(out.columns), out.num_rows.clamp_max(out_cap), ok
 
     def agg_core(state, out_cols, out_rows):
+        # the state is updated in place (tpq's agg_core returns a new one
+        # into the donated buffers): one elementwise add a column
         agg = hash_aggregate(Table(out_cols, out_rows))
         dest = agg.col("key").clamp(0, n_state - 1).to(torch.int32)
         padded, _ = pad([agg.col(n) for n in vnames], dest, agg.num_rows, n_state)
-        return [a + b for a, b in zip(state, padded)]
+        for a, b in zip(state, padded):
+            a.add_(b)
+        return state
 
     def finalize_body(state):
         cols = {"key": torch.arange(n_state, dtype=I64, device=state[0].device),
@@ -352,7 +363,8 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
 
     finalize = _program(finalize_body, eager)
     if staged:
-        probe_j, agg_j = _program(probe_core, eager), _program(agg_core, eager)
+        probe_j = _program(probe_core, eager, hand_off=True)
+        agg_j = _program(agg_core, eager, hand_off=True, updates=(0,))
         chunk_programs = {"probe_core": probe_j, "agg_core": agg_j}
 
         def chunk_step(tables, state, f_cols, f_rows):
@@ -363,7 +375,7 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
             out_cols, n_out, ok = probe_core(tables, f_cols, f_rows)
             return agg_core(state, out_cols, n_out), ok
 
-        chunk_step = _program(step_body, eager)
+        chunk_step = _program(step_body, eager, hand_off=True, updates=(1,))
         chunk_programs = {"chunk_step": chunk_step}
     programs = {"gen_dim": gen_dim, "build": build, "gen_chunk": gen_chunk,
                 **chunk_programs, "finalize": finalize}
@@ -373,17 +385,12 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
         rows = min(chunk_rows, n_fact - ci * chunk_rows)
         return chunk_step(tables, state, gen_chunk(dev, ci * chunk_rows), rows)
 
-    state0 = [torch.zeros(n_state, dtype=I64, device=dev) for _ in vnames]
-    # warm-up off the clock, on two chunks and finalize on two states: a
-    # program whose argument moved between its calls is captured again
-    # (with its copy-in) before the clock
+    state = [torch.zeros(n_state, dtype=I64, device=dev) for _ in vnames]
+    # warm-up off the clock, on two chunks and finalize
     tables = build(dim)
-    finalize(state0)
-    state = state0
     for ci in range(min(2, nchunks)):
-        state, _ = chunk(tables, state, ci)
+        chunk(tables, state, ci)
     finalize(state)
-    del state
 
     t0 = _now(dev)
     tables2 = build(dim)  # the build timed on its own, one fresh run
@@ -391,12 +398,14 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
     del tables2
 
     def loop():
-        state, oks = state0, []
+        for x in state:
+            x.zero_()
+        oks = torch.ones((), dtype=torch.bool, device=dev)
         for ci in range(nchunks):
-            state, ok = chunk(tables, state, ci)
-            oks.append(ok)
+            _, ok = chunk(tables, state, ci)
+            oks = oks & ok  # held only until the probe's next call
         final = finalize(state)
-        return final, int(final.num_rows), oks
+        return final, int(final.num_rows), bool(oks)
 
     (final, groups, oks), loop_stats = _timed_loop(
         loop, dev, programs, ("gen_chunk", *chunk_programs), nchunks, profile)
@@ -412,7 +421,7 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
         **loop_stats,
         "groups": groups,
         "join_rows": int(final.col("count")[:groups].sum()),
-        "lane_path_taken_all_chunks": all(bool(o) for o in oks),
+        "lane_path_taken_all_chunks": oks,
         "hbm_bw_gbps": hbm_bw,
     }
     nf = fact_payloads + 1

@@ -15,6 +15,13 @@ first size. Differences from tpq:
     local mesh the one card, so that the efficiency says how one card's
     throughput holds as its shards and rows grow, not how a join scales
     across cards.
+  * Compiled. As tpq's `jax.jit(fn)` at each size (tpq/bench/scaling.py:
+    59), the join runs jitted on a LocalMesh (dist_hash_join's jitted
+    body: one CUDA graph, captured at its first call, which also gives
+    the overflow check); the mesh's graphs are freed (mesh.clear())
+    before the next size. `eager=True` runs the body without a graph; a
+    process group runs it eagerly always. Each record says which
+    (`jitted`) and, jitted, its graph's `captures` and `reruns`.
   * Timing. CUDA events around 3 joins after a warm-up
     (runner.cuda_time) replace tpq's slope timer. On the CPU a record
     carries no time (None).
@@ -93,6 +100,19 @@ def joined_rows(out: DistTable, mesh) -> int:
     return int(mesh.psum([t.num_rows.to(torch.int64) for t in out.shards])[0])
 
 
+def join_record(mesh, eager: bool) -> dict:
+    """What a record says of how its join ran: `jitted`, whether as its
+    CUDA graph (False when `eager`, on a process group, and off the card,
+    where jit runs the body itself) and, jitted, the captures and reruns
+    of the mesh's jitted bodies (the benches free them before each join,
+    so those of this join's)."""
+    if eager or mesh.programs is None or mesh.device.type != "cuda":
+        return {"jitted": False}
+    progs = mesh.programs.values()
+    return {"jitted": True, "captures": sum(p.captures for p in progs),
+            "reruns": sum(p.reruns for p in progs)}
+
+
 def run_weak_scaling(rows_per_chip: int = 1 << 16,
                      mesh_sizes: tuple[int, ...] = (1, 2, 4, 8),
                      payloads: int = 1,
@@ -101,12 +121,13 @@ def run_weak_scaling(rows_per_chip: int = 1 << 16,
                      n_chunks: int = 1,
                      seed: int = 77,
                      device="cuda",
-                     process_group: bool = False) -> list[dict]:
+                     process_group: bool = False,
+                     eager: bool = False) -> list[dict]:
     """One record per mesh size: tpq's {n_chips, rows_total, elapsed_ms,
     rows_per_sec_per_chip, efficiency, exchange_impl, n_chunks}, plus
-    num_rows and mesh_label's keys. With `process_group` (an initialized
-    torch.distributed group) only the size of the group runs, one shard
-    per rank."""
+    num_rows, mesh_label's keys and join_record's. With `process_group`
+    (an initialized torch.distributed group) only the size of the group
+    runs, one shard per rank."""
     rows, base_rate = [], None
     for n in mesh_sizes:
         if process_group:
@@ -126,13 +147,15 @@ def run_weak_scaling(rows_per_chip: int = 1 << 16,
 
         def join():
             return dist_hash_join(R, S, mesh, out_capacity_per_shard=out_cap, algo=algo,
-                                  exchange_impl=exchange_impl, n_chunks=n_chunks)
+                                  exchange_impl=exchange_impl, n_chunks=n_chunks,
+                                  eager=eager)
 
-        out, ovf = join()
+        # the count first: its buffers are free when the join's graph is captured
+        want = true_join_rows(total, nkeys, seed, seed + 1, mesh.device)
+        out, ovf = join()  # jitted: the capture, outside the timed window
         if int(ovf.sum()) != 0:
             raise RuntimeError(f"scaling bench overflowed at {n} shards: {ovf.tolist()}")
-        got, want = joined_rows(out, mesh), true_join_rows(total, nkeys, seed, seed + 1,
-                                                            mesh.device)
+        got = joined_rows(out, mesh)
         if got != want:
             raise RuntimeError(f"scaling bench at {n} shards: {got} rows, {want} expected")
         del out, ovf
@@ -149,6 +172,9 @@ def run_weak_scaling(rows_per_chip: int = 1 << 16,
             base_rate = base_rate or rate
             rec.update(elapsed_ms=sec * 1e3, rows_per_sec_per_chip=rate,
                        efficiency=rate / base_rate)
+        rec.update(join_record(mesh, eager))
         rows.append(rec)
+        if mesh.programs is not None:
+            mesh.clear()  # the graph and the R and S it pins go before the next size
         del R, S
     return rows

@@ -6,7 +6,7 @@ import collections
 
 from tpq_torch.dist.dist_join import (DistTable, SkewConfig,  # noqa: F401
                                       dist_hash_join, dist_hash_join_planned,
-                                      dist_hash_join_renegotiated,
+                                      dist_hash_join_renegotiated, jitted_join,
                                       plan_dist_capacities)
 from tpq_torch.dist.mesh import LocalMesh, make_mesh, owner_of  # noqa: F401
 from tpq_torch.dist.multihost import ProcessGroupMesh  # noqa: F401
@@ -39,9 +39,10 @@ def dryrun_relations():
 
 def run_dryrun(mesh, variants=DRYRUN_VARIANTS) -> dict:
     """Each variant under dist_hash_join_renegotiated on `mesh` from an
-    output capacity of 1 << 15 per shard. Returns {variant: (result
-    DistTable, retries)}; raises unless every variant joins exactly the
-    expected rows over all shards."""
+    output capacity of 1 << 15 per shard (its body jitted on a
+    LocalMesh). Returns {variant: (result DistTable, retries)}; raises
+    unless every variant joins exactly the expected rows over all
+    shards."""
     r, s, expected = dryrun_relations()
     R = DistTable.from_numpy(r, mesh)
     S = DistTable.from_numpy(s, mesh)

@@ -10,10 +10,26 @@ runs n shards on one card (LocalMesh) or one shard per rank
 
 DistTable is the sharded twin of Table: the list of the shards this
 process holds, in mesh order.
+
+Compiled form. tpq runs the body as one shard_map program, compiled for
+each static set (tpq/dist/dist_join.py:136-137). On a LocalMesh the port
+runs it through tpq_torch.jit: one jitted callable per static set (the
+capacities, algo, exchange and local impl, chunks, skew config, lane
+depth, key), all closed over, never passed as traced numbers, kept by
+the mesh until `mesh.clear()` (a CUDA graph on the card, the body itself
+on the CPU). Its results are handed over (jit's `hand_off`): they hold
+until the next call of the same static set on the mesh. The planner
+reads the host twice (tpq's :298, :324), so it stays an eager step
+before the jitted body. `eager=True` runs the body without a graph: the
+form whose kernel launches can be counted and held, as a replay runs no
+Python wrapper. On a ProcessGroupMesh the body always runs eagerly (its
+ragged exchange reads split sizes on the host, multihost.py), chosen by
+the mesh type before any capture.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -25,6 +41,7 @@ from tpq_torch.dist.mesh import owner_of
 from tpq_torch.dist.overlap import chunk_table, concat_tables
 from tpq_torch.dist.skew import (I64_MAX, _count_keys_in, detect_heavy_keys,
                                  is_key_in, replicate_rows)
+from tpq_torch.jit import Jitted, jit
 from tpq_torch.kernels import radix_partition
 from tpq_torch.kernels.lane2 import (build_lane2_tables, lane2_probe_emit,
                                      plan_lane2)
@@ -113,6 +130,7 @@ def dist_hash_join(
     n_chunks: int = 1,
     local_impl: str = "sorted",
     lane_depth: int = 48,
+    eager: bool = False,
 ) -> tuple[DistTable, torch.Tensor]:
     """Distributed inner equi-join. Returns (row-sharded result, overflow
     counts int32[nchips] of every shard, the same on every process —
@@ -121,7 +139,36 @@ def dist_hash_join(
 
     local_impl="lane" builds R's lane table once per shard after its
     exchange and probes it per ring hop / chunk; lane static-capacity
-    violations count as overflow. Requires algo="hash"."""
+    violations count as overflow. Requires algo="hash".
+
+    On a LocalMesh the body runs jitted (jitted_join; module docstring),
+    unless `eager`."""
+    statics = dict(out_capacity_per_shard=out_capacity_per_shard,
+                   exchange_capacity=exchange_capacity, algo=algo,
+                   exchange_impl=exchange_impl, key=key, skew=skew, n_chunks=n_chunks,
+                   local_impl=local_impl, lane_depth=lane_depth)
+    if eager or mesh.programs is None:
+        return _join_body(r, s, mesh, **statics)
+    return jitted_join(mesh, **statics)(r, s)
+
+
+def jitted_join(mesh, **statics) -> Jitted:
+    """The jitted body of one static set on a LocalMesh (dist_hash_join's
+    keyword arguments but `eager`), made at its first use and kept by
+    the mesh until mesh.clear(): tpq's shard_map program."""
+    k = tuple(sorted(statics.items()))
+    if k not in mesh.programs:
+        mesh.programs[k] = jit(functools.partial(_join_body, mesh=mesh, **statics),
+                               hand_off=True)
+    return mesh.programs[k]
+
+
+def _join_body(r: DistTable, s: DistTable, mesh, out_capacity_per_shard: int,
+               exchange_capacity: int | None, algo: str, exchange_impl: str, key: str,
+               skew: SkewConfig | None, n_chunks: int, local_impl: str,
+               lane_depth: int) -> tuple[DistTable, torch.Tensor]:
+    """dist_hash_join's body, eager: makes no host read, so that a CUDA
+    graph holds it."""
     nchips = mesh.size
     out_cap = out_capacity_per_shard
     ex_cap = exchange_capacity or max(128, next_pow2(2 * r.local_capacity // max(1, nchips) * 2))
@@ -183,20 +230,54 @@ def dist_hash_join(
         return _local_join(algo, R2[i], S2, cap, key), torch.zeros((), dtype=I32, device=dev)
 
     outs = [[] for _ in held]
+    out_shards = [None for _ in held]
 
     def add_light(i: int, S2: Table, cap: int):
         out_c, lane_ovf = light_join(i, S2, cap)
         overflow[i] = overflow[i] + lane_ovf + (out_c.num_rows > out_c.capacity).to(I32)
         outs[i].append(Table(out_c.columns, out_c.num_rows.clamp_max(out_c.capacity)))
 
+    def merge(i: int):
+        """Shard i's result: its chunks' or hops' rows, then its heavy
+        rows, compacted into one Table of out_cap rows."""
+        if heavy_out is not None:
+            h = heavy_out[i]
+            outs[i].append(Table(h.columns, h.num_rows.clamp_max(out_cap)))
+        merged, valid = concat_tables(outs[i])
+        outs[i] = None
+        # compact against the slot mask, not merged.num_rows: valid rows
+        # are scattered per chunk, so a prefix mask must not apply
+        out = compact(Table(merged.columns, merged.capacity), valid)
+        # overflow MUST be read off the pre-clamp row count: with_capacity
+        # clamps num_rows (the silent row loss tests/test_dist.py:161 guards)
+        overflow[i] = overflow[i] + (out.num_rows > out_cap).to(I32)
+        res = out.with_capacity(out_cap)
+        if out.capacity > out_cap:
+            # a slice would keep the whole merge buffer (the ring's hops
+            # and the skew split's heavy rows make it 2 x out_cap): copy
+            res = Table({n: c.clone() for n, c in res.columns.items()}, res.num_rows)
+        out_shards[i] = res
+
     if exchange_impl == "ring":
         # the hop-pipelined ring: S arrives one ring hop at a time
         hop_cap = next_pow2(max(128, 2 * out_cap // nchips))
         dc = [torch.where(t.valid_mask(), d, nchips) for t, d in zip(S, dest_s)]
-        for hop, hop_ovf in ring_hops(S, dc, mesh, nchips, ex_cap):
-            for i in held:
+        hops = ring_hops(S, dc, mesh, nchips, ex_cap)
+        del dc
+        # shard by shard (the same rows and overflow as hop by hop): one
+        # shard's hop outputs are held at a time, not every shard's (at
+        # hop_cap each, twice out_cap a shard), and a shard's R rows are
+        # freed once it is merged (XLA frees by liveness)
+        for i in held:
+            for hop, hop_ovf in hops:
                 overflow[i] = overflow[i] + hop_ovf[i]
                 add_light(i, hop[i], hop_cap)
+            merge(i)
+            if use_lane:
+                lane_tables[i] = None
+            else:
+                R2[i] = None
+        del hops, hop, hop_ovf  # S's buckets: every hop is a view of them
     else:
         chunk_cap = out_cap // n_chunks
         s_chunks = [chunk_table(t, n_chunks) for t in S]
@@ -215,21 +296,9 @@ def dist_hash_join(
                 S2[i] = None
                 if R2 is not None and c == n_chunks - 1:
                     R2[i] = None
-
-    out_shards = []
-    for i in held:
-        if heavy_out is not None:
-            h = heavy_out[i]
-            outs[i].append(Table(h.columns, h.num_rows.clamp_max(out_cap)))
-        merged, valid = concat_tables(outs[i])
-        outs[i] = None
-        # compact against the slot mask, not merged.num_rows: valid rows
-        # are scattered per chunk, so a prefix mask must not apply
-        out = compact(Table(merged.columns, merged.capacity), valid)
-        # overflow MUST be read off the pre-clamp row count: with_capacity
-        # clamps num_rows (the silent row loss tests/test_dist.py:161 guards)
-        overflow[i] = overflow[i] + (out.num_rows > out_cap).to(I32)
-        out_shards.append(out.with_capacity(out_cap))
+        lane_tables = None  # R's rows, dead once every chunk is joined
+        for i in held:
+            merge(i)
     ovf = mesh.all_gather([o.reshape(1) for o in overflow])[0]
     return DistTable(out_shards), ovf
 
@@ -290,7 +359,9 @@ def dist_hash_join_planned(
     **kwargs,
 ) -> tuple[DistTable, torch.Tensor]:
     """Distributed join with capacities planned exactly from the data
-    (plan_dist_capacities) instead of caller-supplied guesses."""
+    (plan_dist_capacities, eager: two host reads) instead of
+    caller-supplied guesses, then dist_hash_join at the planned
+    capacities (jitted on a LocalMesh unless `eager=True`)."""
     ex_cap, out_cap = plan_dist_capacities(r, s, mesh, key=key)
     return dist_hash_join(r, s, mesh, out_capacity_per_shard=out_cap,
                           exchange_capacity=ex_cap, key=key, **kwargs)
@@ -309,7 +380,9 @@ def dist_hash_join_renegotiated(
     overflow vector back, and if any shard's exchange bucket, replica
     buffer or join output overflowed, re-run with every static capacity
     grown: output and exchange capacity and replica capacity doubled,
-    lane depth by half. Returns (result, retries_used)."""
+    lane depth by half. Returns (result, retries_used). Each attempt goes
+    through dist_hash_join: its capacities are another static set, so on
+    a LocalMesh another jitted body (tpq compiles each attempt)."""
     out_cap = out_capacity_per_shard
     ex_cap = exchange_capacity
     skew = kwargs.get("skew")

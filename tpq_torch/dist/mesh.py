@@ -42,7 +42,10 @@ def owner_of(keys: torch.Tensor, nchips: int) -> torch.Tensor:
 
 
 class LocalMesh:
-    """`size` shards held by this process on one device."""
+    """`size` shards held by this process on one device. `programs`
+    holds the distributed join's jitted bodies on this mesh, one per
+    static set (dist_join.jitted_join), with their CUDA graphs and the
+    tensors they pin, until `clear()`."""
 
     def __init__(self, n_shards: int, device="cuda"):
         if n_shards < 1:
@@ -50,9 +53,17 @@ class LocalMesh:
         self.size = n_shards
         self.device = torch.device(device)
         self.shard_ids = list(range(n_shards))
+        self.programs: dict = {}
 
     def __repr__(self):
         return f"LocalMesh({self.size} shards on {self.device})"
+
+    def clear(self) -> None:
+        """Frees the jitted joins' graphs, their memory pools and the
+        tensors they pin."""
+        for p in self.programs.values():
+            p.clear()
+        self.programs.clear()
 
     def all_to_all(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         """Dense tiled all_to_all on axis 0: each [size * m] tensor is

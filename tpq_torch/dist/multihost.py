@@ -49,7 +49,11 @@ def init(coordinator_address: str | None = None,
 
 class ProcessGroupMesh:
     """One shard per rank of the default process group, on `device` (by
-    default the rank's card under NCCL, else the CPU)."""
+    default the rank's card under NCCL, else the CPU). A join on it runs
+    eagerly (`programs` None): the ragged exchange reads its split sizes
+    on the host, which no CUDA graph can hold."""
+
+    programs = None
 
     def __init__(self, device=None):
         self.size = dist.get_world_size()

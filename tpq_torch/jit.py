@@ -38,18 +38,34 @@ replayed in one launch:
     graphs pin at most the tensors of one call each.
   * Branches. Every call replays the graph of the branch path its
     signature took last (at first the then-branches), and reads every
-    recorded pred and each output Table's num_rows in one device-to-host
-    copy: one sync, as tpq's result transfer (a graph with neither makes
-    no sync). If a pred disagrees with the path, the replay is discarded
+    recorded pred and (without hand_off, for their copy-out) each output
+    Table's num_rows in one device-to-host copy: one sync, as tpq's
+    result transfer (a graph with neither makes no sync). If a pred
+    disagrees with the path, the replay is discarded
     (counted in `.reruns`) and fn runs eagerly on the same arguments
     under `decided`, as lax.cond's taken branches; the graph of the path
     it took is then captured, and later calls replay it first. At most
     MAX_PATHS graphs a signature are kept, the least recently used going
     first.
-  * Outputs. Output Tables come back as fresh tensors of the same
-    capacity holding the live prefix (rows past num_rows are
-    unspecified, as the Table contract says); other output tensors are
-    cloned, so no later replay overwrites a returned result.
+  * Outputs. By default output Tables come back as fresh tensors of
+    the same capacity holding the live prefix (rows past num_rows are
+    unspecified, as the Table contract says) and other output tensors
+    are cloned, so no later replay overwrites a returned result.
+    `jit(fn, hand_off=True)` hands back the graph's own output tensors
+    instead, with no copy, as XLA hands its outputs over. Their lifetime
+    rule: they hold the call's result until that callable's next call,
+    which may overwrite them; a caller keeps what it needs past that by
+    copying it. Fed to the next program as arguments, they lie at the
+    same addresses at every call, so that program's graph reads them in
+    place and copies nothing (a chain of programs passing a chunk along).
+  * State updated in place. `jit(fn, updates=(i, ...))` names the
+    argument positions whose tensors fn updates in place (a state carried
+    across calls, tpq's donated buffers): the warm-up before a capture
+    runs on copies of them, so that every call, the first included,
+    updates them once, by the body's own kernels inside the graph; they
+    are never copied into buffers of the graph's own (a call that brings
+    them elsewhere captures the graph again over them). Such a body may
+    have no cond: a rerun after its replay would update them twice.
   * A capture that fails, or a host read inside it, raises: the call
     never runs eagerly in its place. `clear()` frees the graphs, their
     memory pools, their buffers and the tensors they pin, as dropping the
@@ -137,10 +153,12 @@ def cond(pred, then_fn, else_fn):
     return then_fn() if take else else_fn()
 
 
-def jit(fn) -> "Jitted":
+def jit(fn, hand_off: bool = False, updates: tuple[int, ...] = ()) -> "Jitted":
     """fn compiled as tpq's jax.jit compiles it: CUDA graphs per signature
-    on the card, fn itself on the CPU (module docstring)."""
-    return Jitted(fn)
+    on the card, fn itself on the CPU (module docstring). `hand_off`:
+    return the graph's own outputs, valid until the callable's next call;
+    `updates`: the argument positions fn updates in place."""
+    return Jitted(fn, hand_off=hand_off, updates=updates)
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +267,13 @@ class _Graph:
     caller's tensors, pinned, except at the positions in `owned` and for
     Python numbers, where they are buffers of its own), the captured
     graph, its outputs as captured, the flags read after each replay (the
-    recorded preds, then each output Table's num_rows), the path it
+    recorded preds, then, without hand_off, each output Table's
+    num_rows), the path it
     follows and the kernel state it was captured with."""
 
-    def __init__(self, fn, spec, leaves, device: torch.device, path, owned):
-        self.device, self.owned = device, frozenset(owned)
+    def __init__(self, fn, spec, leaves, device: torch.device, path, owned,
+                 hand_off: bool, updated: frozenset):
+        self.device, self.owned, self.hand_off = device, frozenset(owned), hand_off
         self.inputs = [
             x if isinstance(x, torch.Tensor) and i not in self.owned
             else torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -262,28 +282,37 @@ class _Graph:
                              else torch.float64, device=device)
             for i, x in enumerate(leaves)]
         self.load(leaves)
-        it = iter(self.inputs)
-        args = [_unflatten(a, it) for a in spec]
+        # the tensors the body updates in place are copies in the warm-up
+        it = iter([x.clone() if i in updated else x for i, x in enumerate(self.inputs)])
         stream = torch.cuda.Stream(device)
         _take_stream_state(device, stream.cuda_stream)
         stream.wait_stream(torch.cuda.current_stream(device))
         # warm-up: the kernels build, the work-item caches and this
         # stream's look-back state fill, the path the graph takes runs
         with torch.cuda.stream(stream), deferred(path), _host_reads_raise():
-            fn(*args)
+            fn(*[_unflatten(a, it) for a in spec])
+        it = iter(self.inputs)
+        args = [_unflatten(a, it) for a in spec]
         self.graph = torch.cuda.CUDAGraph()
         # relaxed: the wrappers' own CUDA queries (occupancy, shared
         # memory limits) are no stream work; a sync on the capturing
-        # stream still fails the capture
+        # stream still fails the capture. torch.cuda.graph empties the
+        # cache first: the warm-up's blocks go back to the card before the
+        # capture allocates the graph's pool (an 8-shard join's body does
+        # not fit twice)
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="relaxed"), deferred(path) as preds:
             self.out = fn(*args)
             tables = []
-            _map(self.out, tables.append, lambda t: t)
+            if not hand_off:  # each Table's num_rows bounds its copy-out
+                _map(self.out, tables.append, lambda t: t)
             flags = ([p.reshape(()).to(torch.int64) for p in preds]
                      + [t.num_rows.reshape(()).to(torch.int64) for t in tables])
             self.flags = torch.stack(flags) if flags else None
         self.npreds = len(preds)
+        if self.npreds and updated:
+            raise ValueError("jit: a body that updates its arguments in place has "
+                             f"{self.npreds} conds; a rerun would update them twice")
         self.path = tuple(path) if path is not None else (True,) * self.npreds
         self.state = _take_stream_state(device, stream.cuda_stream)
         torch.cuda.current_stream(device).wait_stream(stream)
@@ -319,7 +348,11 @@ class _Graph:
 
     def result(self, num_rows: list):
         """The outputs in fresh tensors: each Table's live prefix (its
-        num_rows from the flags), each other tensor whole."""
+        num_rows from the flags), each other tensor whole; with
+        `hand_off`, the graph's own output tensors in new containers."""
+        if self.hand_off:
+            return _map(self.out, lambda t: Table(dict(t.columns), t.num_rows),
+                        lambda x: x)
         rows = iter(num_rows)
 
         def table(t: Table) -> Table:
@@ -340,10 +373,12 @@ class Jitted:
     disagreed with its path and ran fn eagerly; `copies` and
     `copied_bytes` count the tensors (and their bytes) copied into a
     graph's own buffers because they lay elsewhere than at its capture;
-    `captures` counts the graphs captured."""
+    `captures` counts the graphs captured; `hand_off` and `updates` are
+    jit's options."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, hand_off: bool = False, updates: tuple[int, ...] = ()):
         functools.update_wrapper(self, fn)
+        self.hand_off, self.updates = hand_off, frozenset(updates)
         self.reruns = self.copies = self.copied_bytes = self.captures = 0
         self._graphs: dict = {}  # (signature, path) -> _Graph, least recent first
         self._last: dict = {}    # signature -> the path of its last call
@@ -358,7 +393,7 @@ class Jitted:
         self._last.clear()
         self._owned.clear()
 
-    def _capture(self, spec, path, leaves, device) -> _Graph:
+    def _capture(self, spec, path, leaves, device, updated) -> _Graph:
         """Captures the graph of `spec` along `path` (None: the
         then-branches) over `leaves`, keeping at most MAX_PATHS a
         signature."""
@@ -367,7 +402,7 @@ class Jitted:
             torch.cuda.synchronize(device)
             del self._graphs[same[0]]
         graph = _Graph(self.__wrapped__, spec, leaves, device, path,
-                       self._owned.setdefault(spec, set()))
+                       self._owned.setdefault(spec, set()), self.hand_off, updated)
         self.captures += 1
         self._graphs[(spec, graph.path)] = graph
         self._last[spec] = graph.path
@@ -378,7 +413,13 @@ class Jitted:
         if _TRACE.get() is not None:  # traced or decided inside another body
             return fn(*args)
         leaves: list = []
-        spec = tuple(_flatten(a, leaves, top=True) for a in args)
+        spec, updated = [], set()
+        for i, a in enumerate(args):
+            start = len(leaves)
+            spec.append(_flatten(a, leaves, top=True))
+            if i in self.updates:
+                updated.update(range(start, len(leaves)))
+        spec, updated = tuple(spec), frozenset(updated)
         devices = ({x.device for x in leaves if isinstance(x, torch.Tensor)}
                    | {_placed(a) for a in args if isinstance(a, torch.device)})
         if not any(d.type == "cuda" for d in devices):
@@ -392,13 +433,14 @@ class Jitted:
         if graph is not None:
             moved = graph.moved(leaves)
             if moved:  # captured again with those positions in its own buffers
-                self._owned[spec] |= moved
+                # (a position the body updates in place: over its new tensors)
+                self._owned[spec] |= moved - updated
                 torch.cuda.synchronize(device)
                 graph = None
             else:
                 self._graphs[(spec, path)] = graph  # the most recently used
         if graph is None:
-            graph = self._capture(spec, path, leaves, device)
+            graph = self._capture(spec, path, leaves, device, updated)
         copies, nbytes = graph.load(leaves)
         self.copies += copies
         self.copied_bytes += nbytes
@@ -412,5 +454,5 @@ class Jitted:
         if (spec, path) in self._graphs:
             self._last[spec] = path
         else:  # the next call replays this path's graph
-            self._capture(spec, path, leaves, device)
+            self._capture(spec, path, leaves, device, updated)
         return out
