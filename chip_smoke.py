@@ -84,21 +84,25 @@ Phases, one line each; any failure raises and exits non-zero:
                 rows, fact 100,000,000 rows with 2 payloads, filter key <
                 2^19, out capacity 2^27): one pipeline with every launch
                 count zeroed just before it and read just after (PAD,
-                PACK, the fused walk/emit and the hash (4 times)
+                PACK once (the lane tail's), the fused walk/emit, the
+                hash (4 times) and the aggregate's run-end pass (once)
                 launched, nothing else), the lane pushdown path taken,
                 every group's key, count and sums equal to numpy's; the
                 pipeline once more with every call of those kernels held,
                 as it is made, byte-equal to its plain version; the fused
                 walk/emit's call timed, the hash at its largest call (the
-                201,326,592 padded probe keys), and the aggregate's PACK
-                call (the largest PACK call) beside the boolean-mask
-                library call; end-to-end ms, fact rows/s, groups, join
-                rows and peak memory;
+                201,326,592 padded probe keys), PACK at the lane tail's
+                call, and the run-end pass at the aggregate's call (2^27
+                rows, 331,291 groups, every output slot and the group
+                count byte-equal to its plain version) beside its plain
+                version and, in turns, the aggregate's sequence before it
+                (the plain version with the PACK kernel); end-to-end ms,
+                fact rows/s, groups, join rows and peak memory;
  10. config4_chunked — scale_bench.bench_pipeline at 100M fact rows in
                 chunks of 2^22 on the device streams: first one eager run
-                off the clock with every PAD, PACK, walk/emit and hash
-                call held byte-equal to its plain version, as many calls
-                as the code makes (SCALE_LAUNCHES); then eager, jitted
+                off the clock with every PAD, PACK, walk/emit, hash and
+                run-end call held byte-equal to its plain version, as many
+                calls as the code makes (SCALE_LAUNCHES); then eager, jitted
                 staged, jitted fused, jitted fused, jitted staged, eager,
                 each with its chunk loop profiled (busy ms, idle share):
                 every group exact against numpy, every chunk on the lane
@@ -110,7 +114,9 @@ Phases, one line each; any failure raises and exits non-zero:
                 busy against eager busy, and the replayed
                 loop's port kernels equal to the eager loop's by name and
                 count; the dense accumulator's PAD call (its last) timed
-                beside index_copy_;
+                beside index_copy_, and the run-end pass at a full
+                chunk's call beside its plain version and the sequence
+                before it;
  11. config2  — scale_bench.bench_build_sweep, 10M x 100M with 4 payloads
                 in chunks of 2^24, held, then eager, jitted, jitted,
                 eager, checked the same way: the count exact against
@@ -166,6 +172,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 
 import functools
+import importlib
 import inspect
 import json
 import os
@@ -222,8 +229,10 @@ def with_wrappers_replaced(run, replace):
     from tpq_torch.ops import filter as filter_op
     from tpq_torch.ops import skew_join
 
+    # the module (tpq_torch.ops exports the function under its name)
+    hash_aggregate = importlib.import_module("tpq_torch.ops.hash_aggregate")
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
-               (scale_bench, "pad"),
+               (scale_bench, "pad"), (hash_aggregate, "aggregate_runs"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
                (lane_table, "probe_walk"), (radix_sort, "split_digit"),
                (radix_sort, "lsd_radix_sort_bits"),
@@ -311,29 +320,38 @@ def hash_err(args, got) -> int:
     return max_abs_err([(got, hash_keys_ref(*args))])
 
 
+def agg_err(args, got) -> int:
+    """Over every output slot (zeros past the groups) and the group count."""
+    from tpq_torch.kernels.aggregate import aggregate_runs_ref
+
+    want = aggregate_runs_ref(*args)
+    return max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+
+
 ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
-        "radix_histogram": hist_err, "hash_keys": hash_err}
+        "radix_histogram": hist_err, "hash_keys": hash_err, "aggregate_runs": agg_err}
 
 
-LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys")  # kept at their largest call
+# kept at their largest call
+LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs")
 
 
 def call_size(name, args) -> int:
     """What picks a join's largest call: PAD's and PACK's output slots
     times row width (kernel_ab.size), the walk/emit's padded queries, the
-    hash's keys."""
+    hash's keys, the aggregate's rows."""
     from tpq_torch.bench.kernel_ab import size
 
-    if name == "hash_keys":
+    if name in ("hash_keys", "aggregate_runs"):
         return args[0].numel()
     return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
 
 
 def hold_kernel_calls(run, keep=LARGEST):
     """Runs `run()` with every call of PAD, PACK, the fused walk/emit, the
-    histogram and the hash held, as it is made, against the plain version
-    on the same inputs; the walk/emit is also timed on the card alone at every
-    call. The plain version's buffers go back to the card after each
+    histogram, the hash and the aggregate's run-end pass held, as it is
+    made, against the plain version on the same inputs; the walk/emit is
+    also timed on the card alone at every call. The plain version's buffers go back to the card after each
     check, so that they do not split the memory the run itself needs.
     Returns ({name: (calls, largest max_abs_err)}, {name in `keep`: the
     arguments of its largest call}, [device ms of each walk/emit
@@ -484,6 +502,48 @@ def pack_yardsticks(args, total):
     esz = sum(c.element_size() for c in cols)
     n = occ.shape[0]
     return n * 4 + total * esz + n * esz + 4, lambda: [c[keep] for c in cols]
+
+
+def agg_yardsticks(args) -> tuple[int, int]:
+    """(bytes, valid rows) of a run-end pass: the valid rows of the key
+    and values read once, every output slot and the group count written
+    once."""
+    key, values, num_rows = args
+    n = key.shape[0]
+    live = max(0, min(int(num_rows), n))
+    row = key.element_size() + sum(v.element_size() for v in values)
+    return live * row + n * (key.element_size() + 8 * (1 + len(values))) + 4, live
+
+
+def agg_phase(K, args, label, record):
+    """The aggregate's run-end kernel at one call, against its plain
+    version; then in turns against the aggregate's sequence before it
+    (the plain version with the PACK kernel, `before_ms`); no library
+    call computes the same."""
+    from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
+    from tpq_torch.kernels.move import pack
+
+    key, values, _ = args
+    got = aggregate_runs(*args)
+    groups = int(got[1])
+    nbytes, live = agg_yardsticks(args)
+    rec = K.hold("aggregate_runs", f"{label}: key + {len(values)} values x "
+                                   f"{key.shape[0]} rows, {live} valid, {groups} groups",
+                 lambda: aggregate_runs(*args), lambda: aggregate_runs_ref(*args), 3,
+                 agg_err(args, got), nbytes, ops=live, record=record)
+    before = functools.partial(aggregate_runs_ref, *args, pack=pack)
+    b = before()
+    check(max_abs_err(list(zip(got[0], b[0])) + [(got[1], b[1])]) == 0,
+          f"aggregate_runs ({label}): the sequence with PACK differs")
+    del b, got
+    t_k, t_b = K.paired(lambda: aggregate_runs(*args), before, 3)
+    rec.update(groups=groups, before_ms=t_b, before_device_ms=K.device_ms(before, 3),
+               ms_beside_before=t_k)
+    phase("kernels", f"aggregate_runs ({label}): in turns with the sequence before it "
+                     f"(plain + PACK kernel) {t_k:.4f} ms against {t_b:.4f} ms; that "
+                     f"sequence on the card alone {rec['before_device_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return rec
 
 
 def pad_phase(K, args, label, record):
@@ -845,6 +905,7 @@ PEAK_LIMIT = 70_000_000_000
 def wrappers():
     """The kernel wrappers of the ported paths, by their JSON names."""
     from tpq_torch.hashing import hash_keys
+    from tpq_torch.kernels.aggregate import aggregate_runs
     from tpq_torch.kernels.lane2 import fused_walk_emit
     from tpq_torch.kernels.lane_table import probe_walk
     from tpq_torch.kernels.move import pack, pad
@@ -853,7 +914,8 @@ def wrappers():
 
     return {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit,
             "probe_walk": probe_walk, "split1": split_digit,
-            "radix_histogram": radix_histogram, "hash_keys": hash_keys}
+            "radix_histogram": radix_histogram, "hash_keys": hash_keys,
+            "aggregate_runs": aggregate_runs}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -1020,7 +1082,8 @@ KERNELS_OF = {"pad": ("pad_kernel",), "pack": ("pack_kernel",),
               "fused_walk_emit": ("walk_emit_kernel",),
               "probe_walk": ("probe_walk_kernel",),
               "split1": ("digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel"),
-              "radix_histogram": ("hist_shared_bins",), "hash_keys": ("hash_keys_kernel",)}
+              "radix_histogram": ("hist_shared_bins",), "hash_keys": ("hash_keys_kernel",),
+              "aggregate_runs": ("agg_runs_kernel",)}
 
 
 def eager_port_kernels(fn, dev) -> dict:
@@ -1378,11 +1441,15 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     phase("config4", f"one pipeline (dim {cfg.r.rows}, fact {cfg.s.rows} rows of capacity "
                      f"{s.capacity}, out capacity {out_cap}): launches {launches}; peak "
                      f"memory {peak} B")
-    expect = {"pad", "pack", "fused_walk_emit", "hash_keys"}
+    expect = {"pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
     check(launches["hash_keys"] == HASH_LAUNCHES["config4"],
           f"{launches['hash_keys']} hash launches, expected {HASH_LAUNCHES['config4']}")
+    # the aggregate's run-end pass once; PACK once, the lane tail's
+    check(launches["aggregate_runs"] == 1 and launches["pack"] == 1,
+          f"{launches['aggregate_runs']} run-end and {launches['pack']} PACK launches, "
+          f"expected 1 and 1")
     got = out.to_numpy()
     check(len(got["key"]) == len(truth["key"]) and groups_equal(got, truth),
           f"{len(got['key'])} groups differ from numpy's {len(truth['key'])}")
@@ -1419,13 +1486,21 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
         K, largest.pop("fused_walk_emit"), "config-4 pipeline", record=False)
     K.rec["fused_walk_emit"]["config4"]["device_ms_in_pipeline"] = walk_ms
     torch.cuda.empty_cache()
-    cols, occ = largest["pack"]
-    check(len(cols) == 5 and occ.shape[0] == out_cap
-          and all(c.dtype == torch.int64 for c in cols),
-          "the largest PACK call is not the aggregate's")
-    K.rec["pack"]["config4_aggregate"] = pack_phase(
-        K, largest["pack"], "config-4 aggregate (largest call)", record=False)
-    del largest, cols, occ
+    (cols, occ), agg_args = largest.pop("pack"), largest.pop("aggregate_runs")
+    check(len(cols) == 1 and occ.shape[0] == 201_326_592,
+          "the one PACK call is not the lane tail's over the padded queries")
+    K.rec["pack"]["config4_tail"] = pack_phase(K, (cols, occ), "config-4 lane tail",
+                                               record=False)
+    del cols, occ
+    torch.cuda.empty_cache()
+    key, values, num_rows = agg_args
+    check(key.shape[0] == out_cap and len(values) == 3 and int(num_rows) == join_rows,
+          f"the aggregate's call: {key.shape[0]} rows, {len(values)} values, "
+          f"{int(num_rows)} valid")
+    rec = agg_phase(K, agg_args, "config-4 aggregate", record=True)
+    check(rec["groups"] == len(truth["key"]),
+          f"the run-end pass's {rec['groups']} groups at config 4")
+    del largest, agg_args, key, values, num_rows
     torch.cuda.empty_cache()
 
     report = run_config(cfg, hbm_bw=hbm_bw, device=dev)
@@ -1445,15 +1520,17 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
 # Launches of the scale benches' programs, from the code: the lane build
 # hashes twice (bucket, h2) and PADs once; a chunk's probe hashes twice
 # (bucket, lane of the padded keys), PADs its layout, walks and emits
-# once, then PACKs and PADs the lane tail; config 4's chunk also PACKs
-# its aggregate's groups and PADs them into the accumulator, and its
-# finalize PACKs the groups once. A bench run builds twice (the warm-up's
-# tables, the timed build), runs min(2, nchunks) warm-up chunks before
-# its loop, and config 4 finalizes once in the warm-up and once a loop.
+# once, then PACKs and PADs the lane tail; config 4's chunk also runs
+# its aggregate's run-end pass once and PADs the groups into the
+# accumulator, and its finalize PACKs the groups once. A bench run
+# builds twice (the warm-up's tables, the timed build), runs
+# min(2, nchunks) warm-up chunks before its loop, and config 4 finalizes
+# once in the warm-up and once a loop.
 LANE_BUILD = {"hash_keys": 2, "pad": 1}
 LANE_CHUNK = {"hash_keys": 2, "pad": 2, "pack": 1, "fused_walk_emit": 1}
 SCALE_LAUNCHES = {
-    "config4_chunked": {"build": LANE_BUILD, "chunk": {**LANE_CHUNK, "pad": 3, "pack": 2},
+    "config4_chunked": {"build": LANE_BUILD,
+                        "chunk": {**LANE_CHUNK, "pad": 3, "aggregate_runs": 1},
                         "finalize": {"pack": 1}, "warm_finalizes": 1},
     "config2": {"build": LANE_BUILD, "chunk": LANE_CHUNK, "finalize": {},
                 "warm_finalizes": 0},
@@ -1462,20 +1539,23 @@ SCALE_LAUNCHES = {
 
 def scale_launches(label, nchunks, whole_run) -> dict:
     """The launches SCALE_LAUNCHES gives for one timed loop of `nchunks`
-    chunks, or (`whole_run`) for an unprofiled bench run."""
+    chunks, or (`whole_run`) for an unprofiled bench run, by the wrappers
+    it launches."""
     c = SCALE_LAUNCHES[label]
     builds, chunks, fins = 0, nchunks, 1 if c["finalize"] else 0
     if whole_run:
         builds, chunks, fins = 2, nchunks + min(2, nchunks), fins + c["warm_finalizes"]
-    return {k: builds * c["build"].get(k, 0) + chunks * c["chunk"].get(k, 0)
-            + fins * c["finalize"].get(k, 0) for k in ("pad", "pack", "fused_walk_emit",
-                                                       "hash_keys")}
+    counts = {k: builds * c["build"].get(k, 0) + chunks * c["chunk"].get(k, 0)
+              + fins * c["finalize"].get(k, 0)
+              for k in ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs")}
+    return {k: n for k, n in counts.items() if n}
 
 
 def held_scale_run(label, dev, bench):
     """One eager bench run, off the clock and unprofiled, with every
-    PAD, PACK, walk/emit and hash call held against its plain version
-    (hold_kernel_calls): each byte-equal, as many calls as the code makes."""
+    PAD, PACK, walk/emit, hash and run-end call held against its plain
+    version (hold_kernel_calls): each byte-equal, as many calls as the
+    code makes."""
     reps = []
     t0 = time.perf_counter()
     held, _, walk_ms = hold_kernel_calls(
@@ -1570,23 +1650,30 @@ def scale_forms(label, dev, bench, forms):
 def config4_chunked_phase(dev, K):
     """scale_bench.bench_pipeline at 100M fact rows, eager and jitted
     (staged and fused) in turns; the accumulator's PAD call of the last
-    eager run's last chunk timed. Returns the counted run's launches."""
+    eager run's last chunk and the run-end pass of its last full chunk
+    timed. Returns the counted run's launches."""
     from tpq_torch.bench import scale_bench
 
-    calls = []
+    hash_aggregate = importlib.import_module("tpq_torch.ops.hash_aggregate")
+    calls, agg_calls = [], []
 
     def bench(**kw):
         pad = scale_bench.pad  # held, in the held run
+        runs = hash_aggregate.aggregate_runs
 
         def last_call(*args):
             calls[:] = [args]
             return pad(*args)
 
-        scale_bench.pad = last_call
+        def last_two(*args):
+            agg_calls[:] = agg_calls[-1:] + [args]
+            return runs(*args)
+
+        scale_bench.pad, hash_aggregate.aggregate_runs = last_call, last_two
         try:
             return scale_bench.bench_pipeline(**kw)
         finally:
-            scale_bench.pad = pad
+            scale_bench.pad, hash_aggregate.aggregate_runs = pad, runs
 
     forms = [("eager", {"eager": True}), ("jit_staged", {}),
              ("jit_fused", {"staged": False}), ("jit_fused", {"staged": False}),
@@ -1602,7 +1689,11 @@ def config4_chunked_phase(dev, K):
                              f"{rep['roofline_pct']:.2f}%")
     K.rec["pad"]["config4_accumulator"] = pad_phase(
         K, calls[0], "config-4 chunked accumulator", record=False)
-    del calls
+    check(agg_calls[0][0].shape[0] < rep["n_fact"] and rep["nchunks"] > 2,
+          "config 4 chunked: the run-end call kept is not a chunk's")
+    K.rec["aggregate_runs"]["config4_chunk"] = agg_phase(
+        K, agg_calls[0], "config-4 chunk", record=False)
+    del calls, agg_calls
     torch.cuda.empty_cache()
     return launches
 
@@ -2090,6 +2181,7 @@ def main():
         "radix_histogram": ("tpq_torch/csrc/radix_partition.cu",
                             "tpq/kernels/radix_partition.py:48"),
         "hash_keys": ("tpq_torch/csrc/hash.cu", "tpq/hashing.py:63"),
+        "aggregate_runs": ("tpq_torch/csrc/aggregate.cu", "tpq/ops/hash_aggregate.py:59"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

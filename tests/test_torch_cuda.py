@@ -7,21 +7,26 @@ no conftest fixture; run it there from the repo root with
 
 Integer data: every comparison is exact."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
+import torch_aggregate_cases as agg_cases
 import torch_move_cases as cases
 import torch_skew_cases as skew_cases
+from torch_host_reads import host_reads
 
 from tpq_torch import Table, datagen
 from tpq_torch.columnar import canonicalize, tables_equal
 from tpq_torch.dist import DistTable, dist_hash_join_planned, make_mesh, run_dryrun
 from tpq_torch.dist.mesh import OWNER_SALT, owner_of
 from tpq_torch.hashing import hash_keys, hash_keys_ref, np_hash_keys
-from tpq_torch.jit import jit
+from tpq_torch.jit import deferred, jit
+from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, lane2_probe_emit, plan_lane2)
-from tpq_torch.kernels import lane_table, move
+from tpq_torch.kernels import aggregate, lane_table, move
 from tpq_torch.kernels.lane_table import (SALT_H2, SALT_LANE, LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
                                           probe_walk_ref, walk_ref)
@@ -516,34 +521,117 @@ def test_radix_merge_on_card_matches_cpu(dev):
 
 
 def test_aggregate_pack_on_card_matches_plain(dev, monkeypatch):
-    """The aggregate's PACK call (key, row index and three cumsums of 2^19
-    rows, about 200,000 of them group ends), byte-equal to the plain version; the whole
-    aggregate equals the CPU's row for row, twice (a two-row group's sum
-    wraps)."""
-    from tpq_torch.ops import filter as filter_op
+    """The aggregate's call that PACK made before the run-end kernel took
+    it (2^19 rows, about 200,000 of them group ends): one run-end launch
+    a call and no PACK launch, its outputs and group count byte-equal to
+    the plain version (with the plain PACK and with the PACK kernel);
+    the whole aggregate equals the CPU's over the whole capacity, twice
+    (a two-row group's sum wraps)."""
     from tpq_torch.ops.hash_aggregate import hash_aggregate
 
+    agg_mod = importlib.import_module("tpq_torch.ops.hash_aggregate")
     cols = datagen.gen_relation_np(400_000, 250_000, payloads=3, seed=12)
     calls = []
 
-    def rec(planes, occ, _pack=filter_op.pack):
-        calls.append((planes, occ))
-        return _pack(planes, occ)
+    def rec(key, values, num_rows, _runs=agg_mod.aggregate_runs):
+        calls.append((key, values, num_rows))
+        return _runs(key, values, num_rows)
 
-    monkeypatch.setattr(filter_op, "pack", rec)
+    monkeypatch.setattr(agg_mod, "aggregate_runs", rec)
+    packs, runs = pack.launches, aggregate_runs.launches
     on_card = [hash_aggregate(Table.from_numpy(cols, device=dev)) for _ in range(2)]
-    (args,) = calls[:1]
-    assert len(calls) == 2 and len(args[0]) == 5 and args[1].shape[0] == 1 << 19
-    got, want = pack(*args), pack_ref(*args)
-    _eq(got[1], want[1])
-    for a, b in zip(got[0], want[0]):
-        _eq(a, b)
+    assert pack.launches == packs and aggregate_runs.launches == runs + 2
+    args = calls[0]
+    assert len(calls) == 2 and len(args[1]) == 3 and args[0].shape[0] == 1 << 19
+    got = aggregate_runs(*args)
+    for want in (aggregate_runs_ref(*args), aggregate_runs_ref(*args, pack=pack)):
+        _eq(got[1], want[1])
+        for a, b in zip(got[0], want[0]):
+            _eq(a, b)
     on_cpu = hash_aggregate(Table.from_numpy(cols, device="cpu"))
     n = int(on_cpu.num_rows)
     assert int(on_card[0].num_rows) == n > 150_000
     for k in on_cpu.columns:
-        _eq(on_card[0].columns[k][:n].cpu(), on_cpu.columns[k][:n])
+        _eq(on_card[0].columns[k].cpu(), on_cpu.columns[k])
         _eq(on_card[0].columns[k], on_card[1].columns[k])
+
+
+def _agg_eq(got, want):
+    _eq(got[1], want[1])
+    assert len(got[0]) == len(want[0])
+    for a, b in zip(got[0], want[0]):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("name", agg_cases.CASES)
+def test_aggregate_runs_kernel_contract_cases(dev, name):
+    """tests/torch_aggregate_cases.py at 4x the CPU's rows (13 tiles):
+    every output slot and the group count byte-equal to the plain version
+    and to numpy's, with num_rows an int32 and an int64 tensor, twice
+    (the look-back's epoch advances between calls); one launch a call, two
+    past 14 value columns."""
+    key, values, num_rows = agg_cases.agg_case(name, scale=4)
+    want_np, g = agg_cases.np_aggregate(key, values, num_rows)
+    k, vs = torch.from_numpy(key).to(dev), [torch.from_numpy(v).to(dev) for v in values]
+    per_call = 1 if len(vs) <= 14 else 2
+    for dt in (torch.int32, torch.int64):
+        nr = torch.tensor(num_rows, dtype=dt, device=dev)
+        before = aggregate_runs.launches
+        got, again = aggregate_runs(k, vs, nr), aggregate_runs(k, vs, nr)
+        assert aggregate_runs.launches == before + 2 * per_call
+        want = aggregate_runs_ref(k, vs, nr)
+        _agg_eq(got, want)
+        _agg_eq(again, want)
+        assert int(got[1]) == g
+        for a, w in zip(got[0], want_np):
+            assert np.array_equal(a.cpu().numpy(), w)
+
+
+def test_aggregate_runs_kernel_large_random(dev):
+    """2^22 rows (1,024 tiles, more than one persistent grid) of zipf
+    keys, 3,000,000 valid, int64 and int32 values: byte-equal to the plain
+    version over the whole capacity."""
+    rng = np.random.default_rng(22)
+    n, live = 1 << 22, 3_000_000
+    keys = np.sort(rng.zipf(1.3, live).astype(np.int64))
+    key = np.full(n, np.iinfo(np.int64).max, np.int64)
+    key[:live] = keys
+    vals = [rng.integers(0, 1 << 63, n, dtype=np.int64),
+            rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32),
+            rng.integers(0, 1 << 63, n, dtype=np.int64)]
+    args = (torch.from_numpy(key).to(dev), [torch.from_numpy(v).to(dev) for v in vals],
+            torch.tensor(live, device=dev))
+    got = aggregate_runs(*args)
+    _agg_eq(got, aggregate_runs_ref(*args))
+    assert 1000 < int(got[1]) < live
+
+
+def test_jitted_hash_aggregate_replays_same_bytes(dev):
+    """hash_aggregate jitted with its outputs handed off (the graph's own
+    buffers, the whole capacity): the body makes no host read under the
+    capture flag, two replays give the same bytes, the zeros past the
+    groups included, and equal the eager call's."""
+    from tpq_torch.ops.hash_aggregate import hash_aggregate
+
+    t = Table.from_numpy(datagen.gen_relation_np(300_000, 20_000, payloads=2, seed=9),
+                         device=dev)
+    with host_reads("raise"), deferred():
+        hash_aggregate(t)
+    torch.cuda.synchronize()
+    eager = hash_aggregate(t)
+    jitted = jit(hash_aggregate, hand_off=True)
+    first = {k: v.clone() for k, v in jitted(t).columns.items()}
+    second = jitted(t)
+    assert int(second.num_rows) == int(eager.num_rows) > 10_000
+    for k, v in eager.columns.items():
+        _eq(first[k], v)
+        _eq(second.columns[k], v)
+    assert len(jitted._graphs) == 1 and jitted.reruns == 0
+    # the graph holds the run-end state it was captured with; no eager
+    # call shares it
+    held = next(iter(jitted._graphs.values())).run_states
+    kept = [*aggregate._AGG_STATE.values(), *move._PACK_STATE.values()]
+    assert held and not any(h is k for h in held for k in kept)
 
 
 def test_accumulator_pad_on_card_matches_plain(dev, monkeypatch):
@@ -889,6 +977,59 @@ def test_look_back_epoch_advances_on_the_card_and_wraps(dev, kernel):
         torch.cuda.synchronize(dev)
     finally:
         move._PACK_STATE.pop(key, None)
+
+
+def test_aggregate_state_leaves_pack_and_walk_emit_statuses(dev):
+    """The run-end pass's records carry raw sums. An aggregate whose
+    tiles' open-run sums hold the next epoch of PACK's state in their high
+    words runs between PACK launches on one stream: its records land in a
+    buffer of its own, no word past the header of PACK's state carries an
+    epoch later than PACK's last launch, and PACK and the walk/emit that
+    follow on the stream give their plain versions' bytes."""
+    cols, occ = cases.pack_case("sixteen_cols")
+    pargs = ([torch.from_numpy(c).to(dev) for c in cols], torch.from_numpy(occ).to(dev))
+    pwant = pack_ref(*pargs)
+    plan, wargs = _walk_emit_case(dev, "D 72")
+    wwant = fused_walk_emit_ref(*wargs)
+    nw = min(int(wwant[1].clamp_max(plan.inline_k).sum()), wargs[-1])
+    stream = torch.cuda.Stream(dev)
+    idx = torch.device(dev).index or 0
+    pkey, akey = (idx, stream.cuda_stream), (idx, stream.cuda_stream, 1)
+    move._PACK_STATE.pop(pkey, None)
+    aggregate._AGG_STATE.pop(akey, None)
+
+    def check_pack():
+        outs, total = pack(*pargs)
+        _eq(total, pwant[1])
+        for a, b in zip(outs, pwant[0]):
+            _eq(a, b)
+
+    try:
+        with torch.cuda.stream(stream):
+            check_pack()
+            pstate = move._PACK_STATE[pkey]
+            nxt = ((int(pstate[0]) >> 32) & 0xFFFFFFFF) + 1
+            n = 8 * aggregate.AGG_TILE  # one run over 8 tiles
+            key = torch.zeros(n, dtype=torch.int64, device=dev)
+            vals = torch.zeros(n, dtype=torch.int64, device=dev)
+            vals[aggregate.AGG_TILE - 1::aggregate.AGG_TILE] = nxt << 32
+            got = aggregate_runs(key, [vals], torch.tensor(n, device=dev))
+            _agg_eq(got, aggregate_runs_ref(key, [vals], torch.tensor(n, device=dev)))
+            assert int(got[0][2][0]) == (8 * nxt) << 32
+            assert aggregate._AGG_STATE[akey].data_ptr() != pstate.data_ptr()
+            last = (int(pstate[0]) >> 32) & 0xFFFFFFFF
+            assert last == nxt - 1
+            assert bool((((pstate[move.STATE_HEADER:] >> 32) & 0xFFFFFFFF) <= last).all())
+            check_pack()
+            wgot = fused_walk_emit(*wargs)
+            _eq(wgot[1], wwant[1])
+            _eq(wgot[2], wwant[2])
+            for a, b in zip(wgot[0], wwant[0]):
+                _eq(a[:nw], b[:nw])
+        torch.cuda.synchronize(dev)
+    finally:
+        move._PACK_STATE.pop(pkey, None)
+        aggregate._AGG_STATE.pop(akey, None)
 
 
 # ---------------------------------------------------------------------------

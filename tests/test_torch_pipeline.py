@@ -303,8 +303,9 @@ def _agg_input():
 
 @pytest.fixture(scope="module")
 def tpq_runs():
-    """tpq's hash_aggregate on _agg_input() and its entry step (the sorted
-    full_pipeline at __graft_entry__.entry's shapes), jitted, once each."""
+    """tpq's hash_aggregate on _agg_input() (its live rows, and its whole
+    columns with num_rows) and its entry step (the sorted full_pipeline
+    at __graft_entry__.entry's shapes), jitted, once each."""
     import jax
 
     from tpq import Table as JTable
@@ -317,6 +318,8 @@ def tpq_runs():
     pipe = jax.jit(fn)(*args)
     dim, fact, value = args
     return {"agg": _live(agg), "entry": _live(pipe),
+            "agg_whole": ({k: np.asarray(v) for k, v in agg.columns.items()},
+                          int(agg.num_rows)),
             "dim": _live(dim), "fact": _live(fact), "value": value}
 
 
@@ -327,6 +330,19 @@ def test_aggregate_equals_tpq(tpq_runs):
     assert len(got["key"]) == 130
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+def test_aggregate_equals_tpq_over_the_whole_capacity(tpq_runs):
+    """Every output byte of the capacity equal to tpq's, the rows past the
+    groups included (tpq's PACK zeroes them), dtypes and num_rows too."""
+    out = hash_aggregate(_t(_agg_input()))
+    want, groups = tpq_runs["agg_whole"]
+    assert int(out.num_rows) == groups == 130
+    assert list(out.names) == list(want)
+    for k, v in want.items():
+        got = out.col(k).numpy()
+        assert got.dtype == v.dtype and np.array_equal(got, v), k
+        assert not got[groups:].any(), k
 
 
 def test_sorted_pipeline_equals_tpq(tpq_runs):

@@ -1,6 +1,8 @@
 // Shared pieces of the port's CUDA kernels: the by-value column list
-// that PAD and PACK take, a block-wide exclusive scan, and the
-// decoupled look-back of PACK and the fused walk/emit.
+// that PAD and PACK take, the grid-wide zero-fill of PACK and the
+// aggregate's run-end pass, a block-wide exclusive scan, and the
+// decoupled look-back of PACK and the fused walk/emit (the run-end pass
+// keeps its state in the same layout, in a buffer of its own).
 #pragma once
 
 #include <cstdint>
@@ -27,6 +29,35 @@ static inline ColList make_cols(const void* const* src, void* const* dst,
     c.esz[i] = esz[i];
   }
   return c;
+}
+
+// The 16-byte vector of 4- or 8-byte elements.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<int32_t> {
+  using type = int4;
+};
+template <>
+struct Vec16<int64_t> {
+  using type = longlong2;
+};
+
+// Zeroes dst[from, to) of a 4- or 8-byte column with the whole grid,
+// 16-byte stores in the aligned middle.
+template <typename T>
+__device__ __forceinline__ void zero_range(void* dst, int64_t from, int64_t to) {
+  using Vec = typename Vec16<T>::type;
+  constexpr int V = 16 / sizeof(T);
+  T* d = static_cast<T*>(dst);
+  const int64_t a = min(to, (from + V - 1) / V * V);  // 16-byte aligned middle
+  const int64_t b = max(a, to / V * V);
+  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = from + tid; i < a; i += stride) d[i] = 0;
+  for (int64_t i = b + tid; i < to; i += stride) d[i] = 0;
+  const Vec z{};
+  for (int64_t i = a / V + tid; i < b / V; i += stride) reinterpret_cast<Vec*>(d)[i] = z;
 }
 
 // Exclusive scan of one int per thread across the block, in thread
@@ -70,7 +101,11 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
 // as not yet written, so nothing is reset between launches.
 //
 // The state buffer, kept per device and stream by the wrappers
-// (tpq_torch/kernels/move.py _pack_state) and zero when it is made:
+// (tpq_torch/kernels/move.py _pack_state) and zero when it is made; the
+// aggregate's run-end pass keeps one of the same layout, whose records
+// are multi-word with raw payloads, apart from it
+// (tpq_torch/kernels/aggregate.py _agg_state), since the words below
+// past the header must only ever hold statuses:
 //   state[0]  the epoch of the last launch (0: none yet) << 32 | the
 //             tickets drawn in this one. A block's atomic draw returns
 //             both, so every block learns the launch's epoch (the last

@@ -68,17 +68,6 @@
 
 namespace {
 
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<int32_t> {
-  using type = int4;
-};
-template <>
-struct Vec16<int64_t> {
-  using type = longlong2;
-};
-
 // ---------------------------------------------------------------------------
 // PAD
 // ---------------------------------------------------------------------------
@@ -255,21 +244,6 @@ __device__ __forceinline__ void pack_column(const void* src, void* dst, int64_t 
   __syncthreads();
   for (int i = threadIdx.x; i < count; i += kPackThreads) d[out0 + i] = stage[i];
   __syncthreads();  // the stage is refilled by the next column
-}
-
-template <typename T>
-__device__ __forceinline__ void zero_range(void* dst, int64_t from, int64_t to) {
-  using Vec = typename Vec16<T>::type;
-  constexpr int V = 16 / sizeof(T);
-  T* d = static_cast<T*>(dst);
-  const int64_t a = min(to, (from + V - 1) / V * V);  // 16-byte aligned middle
-  const int64_t b = max(a, to / V * V);
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = from + tid; i < a; i += stride) d[i] = 0;
-  for (int64_t i = b + tid; i < to; i += stride) d[i] = 0;
-  const Vec z{};
-  for (int64_t i = a / V + tid; i < b / V; i += stride) reinterpret_cast<Vec*>(d)[i] = z;
 }
 
 // The state buffer's layout is in common.cuh: the epoch and ticket word,

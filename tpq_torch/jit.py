@@ -239,13 +239,17 @@ def _placed(device: torch.device) -> torch.device:
 
 
 def _take_stream_state(device: torch.device, stream: int):
-    """Removes the look-back state PACK and the walk/emit keep for
-    `stream` (move._pack_state) and returns it (None if there is none): a
-    graph keeps the buffer its kernels were captured with, and the next
-    graph captured on a stream of the same handle starts from a new one."""
-    from tpq_torch.kernels import move
+    """Removes the look-back states the kernels keep for `stream` and
+    returns them: PACK's and the walk/emit's (move._pack_state; None if
+    there is none) and the run-end pass's, one a record width
+    (aggregate._agg_state). A graph keeps the buffers its kernels were
+    captured with, and the next graph captured on a stream of the same
+    handle starts from new ones."""
+    from tpq_torch.kernels import aggregate, move
 
-    return move._PACK_STATE.pop((device.index, stream), None)
+    runs = [k for k in aggregate._AGG_STATE if k[:2] == (device.index, stream)]
+    return (move._PACK_STATE.pop((device.index, stream), None),
+            [aggregate._AGG_STATE.pop(k) for k in runs])
 
 
 @contextlib.contextmanager
@@ -269,7 +273,8 @@ class _Graph:
     graph, its outputs as captured, the flags read after each replay (the
     recorded preds, then, without hand_off, each output Table's
     num_rows), the path it
-    follows and the kernel state it was captured with."""
+    follows and the kernel states it was captured with (PACK's and the
+    walk/emit's in `state`, the run-end pass's in `run_states`)."""
 
     def __init__(self, fn, spec, leaves, device: torch.device, path, owned,
                  hand_off: bool, updated: frozenset):
@@ -314,7 +319,7 @@ class _Graph:
             raise ValueError("jit: a body that updates its arguments in place has "
                              f"{self.npreds} conds; a rerun would update them twice")
         self.path = tuple(path) if path is not None else (True,) * self.npreds
-        self.state = _take_stream_state(device, stream.cuda_stream)
+        self.state, self.run_states = _take_stream_state(device, stream.cuda_stream)
         torch.cuda.current_stream(device).wait_stream(stream)
 
     def moved(self, leaves) -> set:
