@@ -1,4 +1,4 @@
-"""tpq_torch's bench reporting, op log, trace capture, weak scaling,
+"""tpq_torch's bench reporting, trace capture, weak scaling,
 overlap matrix and the runner's options, on the CPU.
 
 The report's markdown is held byte-equal to tpq's, the op log's file to
@@ -16,7 +16,6 @@ import torch
 import torch.distributed as dist
 
 from tpq.bench import report as jreport
-from tpq.log import OpLog as JOpLog
 from tpq_torch import datagen
 from tpq_torch.bench import runner
 from tpq_torch.bench.overlap_bench import run_overlap_matrix
@@ -24,8 +23,7 @@ from tpq_torch.bench.report import emit_json, markdown_table
 from tpq_torch.bench.scaling import device_placed, run_weak_scaling
 from tpq_torch.config import PRESETS
 from tpq_torch.dist import DistTable, make_mesh, multihost
-from tpq_torch.log import GLOBAL_LOG, OpLog
-from tpq_torch.trace import annotate, trace_if
+from tpq_torch.trace import span, trace_if
 
 torch.set_num_threads(2)
 
@@ -61,29 +59,15 @@ def test_emit_json_matches_tpq(tmp_path):
     assert (tmp_path / "a.json").read_bytes() == (tmp_path / "b.json").read_bytes()
 
 
-def test_oplog_writes_jsonl(tmp_path):
-    path = tmp_path / "ops.jsonl"
-    log, jlog = OpLog(str(path)), JOpLog()
-    for rec in ({"op": "join", "rows": 3}, {"op": "agg", "rows": 1, "t": 5.0}):
-        log.emit(**rec)
-        jlog.emit(**rec)
-    lines = [json.loads(x) for x in path.read_text().splitlines()]
-    assert lines == log.records
-    assert [{k: v for k, v in r.items() if k != "t"} for r in lines] == \
-        [{k: v for k, v in r.items() if k != "t"} for r in jlog.records]
-    assert lines[1]["t"] == 5.0 and isinstance(lines[0]["t"], float)
-    assert OpLog().path is None and OpLog().records == []
-
-
 def test_trace_if_writes_a_trace(tmp_path):
-    with trace_if(None), annotate("nothing"):
+    with trace_if(None), span("tpq.nothing"):
         torch.ones(4).sum()
     out = tmp_path / "trace"
-    with trace_if(str(out)), annotate("join_hash"):
+    with trace_if(str(out)), span("tpq.join_hash"):
         torch.arange(1000).sort()
     (f,) = out.iterdir()
     names = {e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
-    assert "join_hash" in names
+    assert "tpq.join_hash" in names
 
 
 def test_weak_scaling_counts_exact():
@@ -150,10 +134,10 @@ def test_check_regression(now, status):
     assert failed == ([] if status == "OK" else ["join_hash_lane"])
 
 
-def test_runner_cli_scaling_and_log(tmp_path, capsys, monkeypatch):
+def test_runner_cli_scaling_and_log(tmp_path, capsys):
     """--scaling prints its table to stderr and its one-line JSON last on
-    stdout; a join run's op row goes to --log-jsonl and its trace to
-    --trace-dir; --check refuses a run without times."""
+    stdout; a join run's trace goes to --trace-dir; --check refuses a
+    run without times."""
     rep = runner.main(["--scaling", "1,2", "--rows-per-chip", "512", "--device", "cpu"])
     out, err = capsys.readouterr()
     last = json.loads(out.strip().splitlines()[-1])
@@ -162,21 +146,17 @@ def test_runner_cli_scaling_and_log(tmp_path, capsys, monkeypatch):
         [r["n_chips"] for r in rep["scaling"]]
     assert "| n_chips |" in err
 
-    monkeypatch.setattr(GLOBAL_LOG, "path", None)
-    monkeypatch.setattr(GLOBAL_LOG, "records", [])
-    log, trace = tmp_path / "ops.jsonl", tmp_path / "trace"
+    trace = tmp_path / "trace"
     base = tmp_path / "base.json"
     base.write_text(json.dumps({"ops": [{"op": "join_hash_lane", "rows_per_sec": 1.0}]}))
-    args = ["--config", "smoke_1k", "--device", "cpu", "--log-jsonl", str(log),
-            "--trace-dir", str(trace)]
-    runner.main(args)
+    args = ["--config", "smoke_1k", "--device", "cpu", "--trace-dir", str(trace)]
+    rep = runner.main(args)
     out, _ = capsys.readouterr()
     last = json.loads(out.strip().splitlines()[-1])
     assert last["metric"] == runner.METRIC and last["value"] is None
-    (rec,) = [json.loads(x) for x in log.read_text().splitlines()]
-    assert (rec["config"], rec["op"]) == ("smoke_1k", "join_hash_lane")
+    assert (rep["config"], [op["op"] for op in rep["ops"]]) == ("smoke_1k", ["join_hash_lane"])
     (f,) = trace.iterdir()
-    assert "join_hash" in {e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
+    assert "tpq.join_hash" in {e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
     assert PRESETS["smoke_1k"].join.impl == "lane"
     with pytest.raises(ValueError, match="no rows/s measured"):
         runner.main(args + ["--check", str(base)])

@@ -16,7 +16,7 @@ reports no time.
 
 CLI:  python -m tpq_torch.bench.runner --config=single_chip_1m [--phases]
       [--algo hash|merge] [--impl lane|sorted|skew] [--sort-engine lax|radix]
-      [--iters N] [--trace-dir DIR] [--log-jsonl FILE] [--json-out FILE]
+      [--iters N] [--trace-dir DIR] [--json-out FILE]
       [--check BASELINE_JSON [--tolerance 0.25]] [--device cuda|cpu]
       python -m tpq_torch.bench.runner --config=pipeline_100m
       python -m tpq_torch.bench.runner --scaling 1,2,4,8
@@ -48,11 +48,10 @@ from tpq_torch.bench.report import emit_json, markdown_table
 from tpq_torch.columnar import Table, next_pow2
 from tpq_torch.config import PRESETS, BenchConfig, RelationSpec
 from tpq_torch.jit import jit
-from tpq_torch.log import GLOBAL_LOG
 from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.ops.filter import compact, keep_mask
 from tpq_torch.query import jit_pipeline
-from tpq_torch.trace import annotate, trace_if
+from tpq_torch.trace import span, trace_if
 
 METRIC = "hash_join_probe_rows_per_sec_1chip_torch"
 PIPELINE_METRIC = "pipeline_fact_rows_per_sec_1chip_torch"
@@ -222,8 +221,8 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
                device="cuda", trace_dir: str | None = None) -> dict:
     """Runs a join or pipeline preset on `device`. The report's "output"
     is the Table of the last timed call. `trace_dir` traces the timed
-    calls (trace.trace_if), under tpq's span name ("pipeline" or
-    "join_<algo>"). Each op row also goes to log.GLOBAL_LOG."""
+    calls (trace.trace_if), under tpq's span name with the port's prefix
+    ("tpq.pipeline" or "tpq.join_<algo>")."""
     dev = torch.device(device)
     r, s = gen(cfg.r, dev), gen(cfg.s, dev)
     out_cap = out_capacity_for(cfg)
@@ -251,7 +250,7 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
         if not bool(ok):
             op += "_FELL_BACK_TO_SORTED"
 
-    span = "pipeline" if cfg.pipeline else f"join_{algo}"
+    name = "tpq.pipeline" if cfg.pipeline else f"tpq.join_{algo}"
     if dev.type == "cuda":
         if hbm_bw is None:
             hbm_bw = roofline.measure_hbm_bw(device=dev)
@@ -259,7 +258,7 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
         # call), so cfg.warmup replays follow it: the first replay's fresh
         # result finds the capture's result still held and grows the
         # allocator by cudaMalloc calls, which no later call repeats
-        with trace_if(trace_dir), annotate(span):
+        with trace_if(trace_dir), span(name):
             sec, out = cuda_time(fn, dev, cfg.iters, 1 + cfg.warmup)
         fn.jitted.clear()  # the graph's memory pool goes before the caller's next step
         model = bytes_model(r.capacity, len(r.columns), s.capacity,
@@ -269,12 +268,11 @@ def run_config(cfg: BenchConfig, hbm_bw: float | None = None,
         row["reruns"] = fn.jitted.reruns
         name = torch.cuda.get_device_name(dev)
     else:
-        with trace_if(trace_dir), annotate(span):
+        with trace_if(trace_dir), span(name):
             out = fn()
         # not measured
         row = {"op": op, "elapsed_ms": None, "rows": cfg.s.rows, "rows_per_sec": None}
         name = str(dev)
-    GLOBAL_LOG.emit(config=cfg.name, **row)
     return {"config": cfg.name, "device": name, "hbm_bw_gbps": hbm_bw,
             "out_capacity": out_cap, "out_rows": int(out.num_rows),
             "ops": [row], "output": out}
@@ -339,8 +337,6 @@ def main(argv=None):
     p.add_argument("--json-out", default=None)
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler Chrome trace of the timed calls here")
-    p.add_argument("--log-jsonl", default=None,
-                   help="append each op record to this .jsonl file")
     p.add_argument("--scaling", default=None, metavar="N1,N2,...",
                    help="weak-scaling mode: the distributed join at these mesh sizes "
                         "(rows per shard fixed); other config flags are ignored")
@@ -366,8 +362,6 @@ def main(argv=None):
     if args.eager and not args.scaling:
         p.error("--eager goes with --scaling (bench.profile --eager times a preset's "
                 "body eagerly)")
-    if args.log_jsonl:
-        GLOBAL_LOG.path = args.log_jsonl
     if args.scaling:
         return scaling_main(args, dev)
 

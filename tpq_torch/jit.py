@@ -66,6 +66,21 @@ replayed in one launch:
     are never copied into buffers of the graph's own (a call that brings
     them elsewhere captures the graph again over them). Such a body may
     have no cond: a rerun after its replay would update them twice.
+  * Named conds and observed values. `cond(..., name=...)` records the
+    branch a named cond takes (`tpq.lane.ok`, `tpq.skew.ok`,
+    `tpq.union.small_ok`); `observe(name, scalar)` inside a body stacks a
+    0-d device integer into the same flags copy (eagerly it reads the
+    scalar only while a profiler records). Both cost no sync of their own.
+  * Phases and records. Every call adds its host ns, phase by phase
+    (signature: the arguments flattened, the graph looked up and its
+    addresses checked; load: the copy-in and the numbers filled; launch:
+    the replay; read: the flags' device-to-host copy, a wait; result: the
+    copy-out; rerun; capture), into the callable's totals; `stats()`
+    returns them with the counters, each named cond's branches and the
+    last observed values. While a profiler records, each phase is a span
+    `tpq.jit.<phase>` and each call appends a record (trace.py) with the
+    replay's device ms and its operator spans' (trace.span's stamps inside
+    the graph, read in the same flags copy).
   * A capture that fails, or a host read inside it, raises: the call
     never runs eagerly in its place. `clear()` frees the graphs, their
     memory pools, their buffers and the tensors they pin, as dropping the
@@ -83,26 +98,34 @@ import contextlib
 import contextvars
 import dataclasses
 import functools
+from time import perf_counter_ns
 
 import torch
 
+from tpq_torch import trace
 from tpq_torch.columnar import Table
 
 # graphs kept a signature: one a branch path, the least recently used
 # dropped first
 MAX_PATHS = 2
+# a call's phases, in the order a call goes through them (module docstring)
+PHASES = ("signature", "capture", "load", "launch", "read", "result", "rerun")
 
 
 class _Trace:
-    """What cond does in a run. Under a capture (`eager` False) the k-th
-    cond takes the branch path[k] (then_fn where path is None) and appends
-    its pred, unread; eagerly (`eager` True) it reads pred and appends
-    the branch taken (True: then_fn)."""
+    """What cond and observe do in a run. Under a capture (`eager` False)
+    the k-th cond takes the branch path[k] (then_fn where path is None)
+    and appends its pred, unread; eagerly (`eager` True) it reads pred and
+    appends the branch taken (True: then_fn). Each cond also appends its
+    name to `names` and to `attempts` the spans its else branch discards
+    (a range of the capture's top-level spans, or None); `observed` holds
+    (name, 0-d int64 tensor) under a capture, (name, int) eagerly."""
 
-    __slots__ = ("path", "eager", "preds")
+    __slots__ = ("path", "eager", "preds", "names", "attempts", "observed")
 
     def __init__(self, path=None, eager=False):
         self.path, self.eager, self.preds = path, eager, []
+        self.names, self.attempts, self.observed = [], [], []
 
 
 # the trace of the run in progress; None when cond reads its pred on the
@@ -112,10 +135,10 @@ _TRACE: contextvars.ContextVar = contextvars.ContextVar("tpq_torch_jit_trace",
 
 
 @contextlib.contextmanager
-def _traced(trace: _Trace):
-    token = _TRACE.set(trace)
+def _traced(run: _Trace):
+    token = _TRACE.set(run)
     try:
-        yield trace.preds
+        yield run.preds
     finally:
         _TRACE.reset(token)
 
@@ -133,24 +156,43 @@ def decided():
     return _traced(_Trace(eager=True))
 
 
-def cond(pred, then_fn, else_fn):
+def cond(pred, then_fn, else_fn, name: str | None = None, attempt=None):
     """tpq's lax.cond(pred, then_fn, else_fn): eager, one host read of
     pred; under `deferred`, the recorded path's branch with pred recorded;
-    under `decided`, eager with the branch recorded."""
-    trace = _TRACE.get()
-    if trace is None:
+    under `decided`, eager with the branch recorded. `name` names it in
+    the records and `stats()`; `attempt` is trace.marker() taken before
+    the work whose result then_fn returns, so the spans opened since are
+    discarded where the else branch is taken."""
+    run = _TRACE.get()
+    if run is None:
         return then_fn() if bool(pred) else else_fn()
-    if trace.eager:
+    if run.eager:
         take = bool(pred)
-        trace.preds.append(take)
+        run.preds.append(take)
     else:
-        k = len(trace.preds)
-        if trace.path is not None and k >= len(trace.path):
+        k = len(run.preds)
+        if run.path is not None and k >= len(run.path):
             raise RuntimeError(f"jit: cond {k} of a body recorded with "
-                               f"{len(trace.path)} conds")
-        take = True if trace.path is None else trace.path[k]
-        trace.preds.append(pred)
+                               f"{len(run.path)} conds")
+        take = True if run.path is None else run.path[k]
+        run.preds.append(pred)
+    run.names.append(name)
+    run.attempts.append(None if attempt is None else range(attempt, trace.marker()))
     return then_fn() if take else else_fn()
+
+
+def observe(name: str, value) -> None:
+    """Records a 0-d integer tensor of a body under `name`: under a
+    capture it joins the flags read after each replay (no sync of its
+    own); in an eager run of a jitted call it is read only while a
+    profiler records; elsewhere nothing is done."""
+    run = _TRACE.get()
+    if run is None:
+        return
+    if not run.eager:
+        run.observed.append((name, value.reshape(()).to(torch.int64)))
+    elif trace.recording():
+        run.observed.append((name, int(value)))
 
 
 def jit(fn, hand_off: bool = False, updates: tuple[int, ...] = ()) -> "Jitted":
@@ -271,10 +313,12 @@ class _Graph:
     caller's tensors, pinned, except at the positions in `owned` and for
     Python numbers, where they are buffers of its own), the captured
     graph, its outputs as captured, the flags read after each replay (the
-    recorded preds, then, without hand_off, each output Table's
-    num_rows), the path it
-    follows and the kernel states it was captured with (PACK's and the
-    walk/emit's in `state`, the run-end pass's in `run_states`)."""
+    recorded preds, then the observed values, then, without hand_off,
+    each output Table's num_rows, then the spans' stamps), the path it
+    follows, the kernel states it was captured with (PACK's and the
+    walk/emit's in `state`, the run-end pass's in `run_states`), and its
+    top-level spans with their stamps (`marks`; `discarded`: the spans
+    whose output a cond of this path throws away)."""
 
     def __init__(self, fn, spec, leaves, device: torch.device, path, owned,
                  hand_off: bool, updated: frozenset):
@@ -299,6 +343,7 @@ class _Graph:
         it = iter(self.inputs)
         args = [_unflatten(a, it) for a in spec]
         self.graph = torch.cuda.CUDAGraph()
+        run, self.marks = _Trace(path), trace.Marks(device)
         # relaxed: the wrappers' own CUDA queries (occupancy, shared
         # memory limits) are no stream work; a sync on the capturing
         # stream still fails the capture. torch.cuda.graph empties the
@@ -306,21 +351,30 @@ class _Graph:
         # capture allocates the graph's pool (an 8-shard join's body does
         # not fit twice)
         with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="relaxed"), deferred(path) as preds:
+                              capture_error_mode="relaxed"), _traced(run), \
+                trace.capturing(self.marks):
             self.out = fn(*args)
+            self.marks.finish()
             tables = []
             if not hand_off:  # each Table's num_rows bounds its copy-out
                 _map(self.out, tables.append, lambda t: t)
-            flags = ([p.reshape(()).to(torch.int64) for p in preds]
-                     + [t.num_rows.reshape(()).to(torch.int64) for t in tables])
+            flags = ([p.reshape(()).to(torch.int64) for p in run.preds]
+                     + [v for _, v in run.observed]
+                     + [t.num_rows.reshape(()).to(torch.int64) for t in tables]
+                     + self.marks.stamps)
             self.flags = torch.stack(flags) if flags else None
-        self.npreds = len(preds)
+        self.npreds, self.nobserved = len(run.preds), len(run.observed)
+        self.nstamps = len(self.marks.stamps)
         if self.npreds and updated:
             raise ValueError("jit: a body that updates its arguments in place has "
                              f"{self.npreds} conds; a rerun would update them twice")
         self.path = tuple(path) if path is not None else (True,) * self.npreds
+        self.names, self.observed = run.names, [n for n, _ in run.observed]
+        self.discarded = frozenset(i for take, spans in zip(self.path, run.attempts)
+                                   if not take and spans is not None for i in spans)
         self.state, self.run_states = _take_stream_state(device, stream.cuda_stream)
         torch.cuda.current_stream(device).wait_stream(stream)
+        self.bounds = None  # timing events about a replay, made when first timed
 
     def moved(self, leaves) -> set:
         """The pinned positions whose tensor in `leaves` lies elsewhere (a
@@ -342,9 +396,8 @@ class _Graph:
                 nbytes += x.numel() * x.element_size()
         return copies, nbytes
 
-    def replay(self) -> list:
-        """Replays; returns the flags (the one device-to-host copy)."""
-        self.graph.replay()
+    def read(self) -> list:
+        """The flags of the last replay (the one device-to-host copy)."""
         return self.flags.tolist() if self.flags is not None else []
 
     def follows(self, flags) -> bool:
@@ -371,6 +424,55 @@ class _Graph:
 
         return _map(self.out, table, torch.clone)
 
+    def launch(self, timed: bool) -> None:
+        """Replays; `timed` (a profiler records) between two timing events
+        recorded on the stream, outside the graph."""
+        if not timed:
+            self.graph.replay()
+            return
+        if self.bounds is None:
+            self.bounds = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        self.bounds[0].record()
+        self.graph.replay()
+        self.bounds[1].record()
+
+    def timed(self, flags: list, rerun: bool) -> tuple[float, list]:
+        """The last (timed) replay's device ms and its spans' (the records'
+        form) from its flags, once its work has finished: all of them
+        discarded by a rerun."""
+        start, end = self.bounds
+        end.synchronize()  # a graph with no flags made no sync
+        stamps = flags[len(flags) - self.nstamps:]
+        return start.elapsed_time(end), [
+            {"name": name, "ms": t, "discarded": rerun or i in self.discarded}
+            for i, (name, t) in enumerate(zip(self.marks.spans,
+                                              self.marks.read(stamps)))]
+
+
+class _Phases:
+    """The clock of one call's phases: `next(phase)` ends the phase in
+    progress (its host ns into `totals`, and, while a profiler records,
+    into `ms` and its span `tpq.jit.<phase>`) and starts `phase` (None:
+    none)."""
+
+    __slots__ = ("totals", "ms", "phase", "t", "span")
+
+    def __init__(self, totals: dict, on: bool):
+        self.totals, self.ms = totals, {} if on else None
+        self.phase = self.span = None
+        self.t = 0
+
+    def next(self, phase) -> None:
+        t = perf_counter_ns()
+        if self.phase is not None:
+            self.totals[self.phase] += t - self.t
+            if self.ms is not None:
+                self.ms[self.phase] = self.ms.get(self.phase, 0.0) + (t - self.t) / 1e6
+                self.span.__exit__(None, None, None)
+        self.phase, self.t = phase, t
+        if phase is not None and self.ms is not None:
+            self.span = trace.span("tpq.jit." + phase).__enter__()
+
 
 class Jitted:
     """A jitted callable (see `jit`). `__wrapped__` is fn, the eager body;
@@ -379,12 +481,17 @@ class Jitted:
     `copied_bytes` count the tensors (and their bytes) copied into a
     graph's own buffers because they lay elsewhere than at its capture;
     `captures` counts the graphs captured; `hand_off` and `updates` are
-    jit's options."""
+    jit's options; `stats()` returns these with the rest of what the
+    calls counted."""
 
     def __init__(self, fn, hand_off: bool = False, updates: tuple[int, ...] = ()):
         functools.update_wrapper(self, fn)
         self.hand_off, self.updates = hand_off, frozenset(updates)
+        self.calls = self.replays = 0
         self.reruns = self.copies = self.copied_bytes = self.captures = 0
+        self.phase_ns = dict.fromkeys(PHASES, 0)
+        self.branches: dict = {}  # cond name -> {"then": calls, "else": calls}
+        self.observed: dict = {}  # name -> the last value observed
         self._graphs: dict = {}  # (signature, path) -> _Graph, least recent first
         self._last: dict = {}    # signature -> the path of its last call
         self._owned: dict = {}   # signature -> positions whose tensors moved
@@ -397,6 +504,28 @@ class Jitted:
         self._graphs.clear()
         self._last.clear()
         self._owned.clear()
+
+    def stats(self) -> dict:
+        """The calls' counters: calls, replays, reruns, copies,
+        copied_bytes, captures; the host ns each phase took over all calls
+        (`phase_ns`); each named cond's branches taken (`conds`); the last
+        value of each observed name (`observed`)."""
+        return {"calls": self.calls, "replays": self.replays, "reruns": self.reruns,
+                "copies": self.copies, "copied_bytes": self.copied_bytes,
+                "captures": self.captures, "phase_ns": dict(self.phase_ns),
+                "conds": {n: dict(b) for n, b in self.branches.items()},
+                "observed": dict(self.observed)}
+
+    def _count(self, names, taken) -> list:
+        """Counts each named cond's branch; returns [[name, branch]]."""
+        conds = []
+        for name, take in zip(names, taken):
+            if name is not None:
+                take = bool(take)
+                b = self.branches.setdefault(name, {"then": 0, "else": 0})
+                b["then" if take else "else"] += 1
+                conds.append([name, take])
+        return conds
 
     def _capture(self, spec, path, leaves, device, updated) -> _Graph:
         """Captures the graph of `spec` along `path` (None: the
@@ -417,6 +546,21 @@ class Jitted:
         fn = self.__wrapped__
         if _TRACE.get() is not None:  # traced or decided inside another body
             return fn(*args)
+        self.calls += 1
+        clock = _Phases(self.phase_ns, trace.recording())
+        try:
+            clock.next("signature")
+            out, record = self._call(fn, args, clock)
+        finally:
+            clock.next(None)
+        if record is not None:
+            record["host_ms"] = clock.ms
+            trace.append(record)
+        return out
+
+    def _call(self, fn, args, clock: _Phases):
+        """The call; returns (its result, its record or None)."""
+        on = clock.ms is not None
         leaves: list = []
         spec, updated = [], set()
         for i, a in enumerate(args):
@@ -428,7 +572,13 @@ class Jitted:
         devices = ({x.device for x in leaves if isinstance(x, torch.Tensor)}
                    | {_placed(a) for a in args if isinstance(a, torch.device)})
         if not any(d.type == "cuda" for d in devices):
-            return fn(*args)
+            clock.next(None)
+            run = _Trace(eager=True)
+            with _traced(run):
+                out = fn(*args)
+            conds = self._count(run.names, run.preds)
+            self.observed.update(run.observed)
+            return out, (_record(False, None, [], conds, run.observed) if on else None)
         if len(devices) != 1:
             raise ValueError(f"jit: arguments on several devices "
                              f"{sorted(map(str, devices))}")
@@ -445,19 +595,46 @@ class Jitted:
             else:
                 self._graphs[(spec, path)] = graph  # the most recently used
         if graph is None:
+            clock.next("capture")
             graph = self._capture(spec, path, leaves, device, updated)
+        clock.next("load")
         copies, nbytes = graph.load(leaves)
         self.copies += copies
         self.copied_bytes += nbytes
-        flags = graph.replay()
+        clock.next("launch")
+        graph.launch(on)
+        clock.next("read")
+        flags = graph.read()
+        self.replays += 1
+        npreds, nobs = graph.npreds, graph.nobserved
+        observed = list(zip(graph.observed, flags[npreds:npreds + nobs]))
+        self.observed.update(observed)
         if graph.follows(flags):
-            return graph.result(flags[graph.npreds:])
+            conds = self._count(graph.names, flags[:npreds])
+            clock.next("result")
+            out = graph.result(flags[npreds + nobs:])
+            if not on:
+                return out, None
+            clock.next(None)
+            return out, _record(False, *graph.timed(flags, False), conds, observed)
         self.reruns += 1
-        with decided() as taken:
+        timed = graph.timed(flags, True) if on else None
+        clock.next("rerun")
+        run = _Trace(eager=True)
+        with _traced(run):
             out = fn(*args)
-        path = tuple(taken)
+        path = tuple(run.preds)
         if (spec, path) in self._graphs:
             self._last[spec] = path
         else:  # the next call replays this path's graph
+            clock.next("capture")
             self._capture(spec, path, leaves, device, updated)
-        return out
+        conds = self._count(run.names, run.preds)
+        self.observed.update(run.observed)
+        return out, (_record(True, *timed, conds, run.observed or observed) if on else None)
+
+
+def _record(rerun: bool, device_ms, spans: list, conds: list, observed) -> dict:
+    """A call's record (trace.py), its host ms added by the caller."""
+    return {"rerun": rerun, "host_ms": None, "device_ms": device_ms, "spans": spans,
+            "conds": conds, "observed": dict(observed)}

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "tpq_radix_histogram": [P, I64, I32, P, P, I64, P],
     "tpq_hash_keys": [P, I64, I32, U32, P, P],
     "tpq_copy": [P, P, I64, P],
+    "tpq_stamp": [P, P],
     "tpq_aggregate_runs": [P, I32, P, P, I32, P, I32, I64, P, P, P, P, I64, P, P],
 }
 

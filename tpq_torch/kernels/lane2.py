@@ -31,6 +31,7 @@ from tpq_torch.kernels.lane_table import (L, MAX_K, SMEM_LIMIT, LanePlan,
                                           _probe_layout, build_lane_tables, walk_ref,
                                           work_item_queries)
 from tpq_torch.kernels.move import MAX_COLS, _pack_state
+from tpq_torch.trace import marker, span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -176,8 +177,11 @@ def fused_probe_emit2(tables: LaneTables, s: Table, out_capacity: int,
     [npart * probe_cap] probe order."""
     qk_p, spay_p, lane_p, qocc, overflow = _probe_layout(
         tables.plan, s, key, keep=keep)
-    outs, cnt, d_first = fused_walk_emit(tables, qk_p, lane_p, qocc, spay_p,
-                                         out_capacity)
+    # at the top level the span runs on to the next one: the tail's
+    # splice (lane_table._splice_tail) is timed in it
+    with span("tpq.lane.emit"):
+        outs, cnt, d_first = fused_walk_emit(tables, qk_p, lane_p, qocc, spay_p,
+                                             out_capacity)
     return outs, cnt, d_first, qk_p, spay_p, qocc, lane_p, overflow
 
 
@@ -223,6 +227,7 @@ def lane2_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
 
     if plan is None:
         plan = plan_lane2(r.capacity, s.capacity, out_capacity=out_capacity)
+    attempt = marker()  # the spans of the lane attempt, which the fallback discards
     r_names = [n for n in r.names if n != key]
     tables = build_lane2_tables(r, plan, key)
     out, ok = lane2_probe_emit(tables, s, out_capacity, key=key,
@@ -234,4 +239,4 @@ def lane2_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
         return union_join(r, s_kept, out_capacity, key=key)
 
     # tpq's lax.cond(ok, ..., fallback) (tpq/kernels/lane2.py:349)
-    return cond(ok, lambda: out, fallback)
+    return cond(ok, lambda: out, fallback, name="tpq.lane.ok", attempt=attempt)

@@ -48,6 +48,7 @@ from tpq_torch.kernels import _build
 from tpq_torch.kernels.move import MAX_COLS, pack, pad
 from tpq_torch.ops._expand import expand_segments, last_start
 from tpq_torch.ops.union_join import planes_col
+from tpq_torch.trace import span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -131,6 +132,7 @@ def _rank_in_group(group: torch.Tensor) -> torch.Tensor:
     return i - last_start(new)
 
 
+@span("tpq.lane.build")
 def build_lane_tables(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
     D, nb = plan.depth, plan.nbuckets
     rk = _as_i64(r.col(key))
@@ -174,6 +176,7 @@ def plan_pressure(r: Table, s: Table, plan: LanePlan, key: str = "key"):
     return load, (cnt - plan.inline_k).clamp_min(0).sum()
 
 
+@span("tpq.lane.layout")
 def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
     """Group the queries by partition (one stable sort) and PAD them to
     the [npart * probe_cap] layout. `keep` (bool[capacity], optional) is

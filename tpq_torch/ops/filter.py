@@ -16,6 +16,7 @@ import torch
 
 from tpq_torch.columnar import Table
 from tpq_torch.kernels.move import MAX_COLS, pack
+from tpq_torch.trace import span
 
 I32 = torch.int32
 
@@ -56,6 +57,7 @@ def compact(t: Table, keep: torch.Tensor) -> Table:
     return pack_columns(t.columns, (keep & t.valid_mask()).to(I32))
 
 
+@span("tpq.filter.keep")
 def keep_mask(t: Table, col: str, op: str, value) -> torch.Tensor:
     """bool[capacity]: `col <op> value`, the value taken in the column's
     dtype (tpq's jnp.asarray(value, c.dtype)). `value` is a number or a

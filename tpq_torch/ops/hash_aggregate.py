@@ -25,12 +25,16 @@ from __future__ import annotations
 from tpq_torch.columnar import Table
 from tpq_torch.kernels.aggregate import aggregate_runs
 from tpq_torch.ops.merge_join import sort_table_by_key
+from tpq_torch.trace import span
 
 
 def hash_aggregate(t: Table, key: str = "key") -> Table:
     """Group t by `key`; count + sum every other column (wrapping int64).
     Output capacity = input capacity (groups <= rows)."""
-    ts = sort_table_by_key(t, key)
+    with span("tpq.aggregate.sort"):
+        ts = sort_table_by_key(t, key)
     names = [n for n in ts.names if n != key]
-    cols, groups = aggregate_runs(ts.col(key), [ts.col(n) for n in names], ts.num_rows)
+    with span("tpq.aggregate.runs"):
+        cols, groups = aggregate_runs(ts.col(key), [ts.col(n) for n in names],
+                                      ts.num_rows)
     return Table(dict(zip([key, "count"] + [f"sum_{n}" for n in names], cols)), groups)

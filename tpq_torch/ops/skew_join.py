@@ -36,6 +36,7 @@ from tpq_torch.kernels.lane_table import LanePlan, probe_lane_tables
 from tpq_torch.kernels.move import pack
 from tpq_torch.ops._expand import last_start
 from tpq_torch.ops.filter import compact
+from tpq_torch.trace import marker, span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -87,45 +88,59 @@ def _membership(list_tables, t: Table, key: str) -> torch.Tensor:
 def _split(r: Table, s: Table, out_capacity: int, key: str, heavy_cap: int,
            mini_cap: int, stride: int, sample_threshold: int):
     """Steps 1-4. Returns (light_out, heavy_out, ok)."""
+    from tpq_torch.jit import observe
+
     r_names = [n for n in r.names if n != key]
     r_dtypes = [r.col(n).dtype for n in r_names]
 
-    heavy_keys, n_heavy, ok_nom = nominate_heavy_keys(
-        s.col(key), s.num_rows, heavy_cap, stride, sample_threshold)
+    # the heavy-key list and both relations' heavy masks
+    with span("tpq.skew.nominate"):
+        heavy_keys, n_heavy, ok_nom = nominate_heavy_keys(
+            s.col(key), s.num_rows, heavy_cap, stride, sample_threshold)
+        # list table: keys only, one partition
+        list_t = Table({key: heavy_keys}, n_heavy)
+        list_tables = build_lane2_tables(
+            list_t, _broadcast_plan(heavy_cap, r.capacity, depth=48, inline_k=1,
+                                    out_capacity=out_capacity), key)
+        r_heavy = _membership(list_tables, r, key)
+        # the identity layout needs probe_cap == the prober's capacity
+        list_tables_s = list_tables
+        if s.capacity != r.capacity:
+            list_tables_s = build_lane2_tables(
+                list_t, _broadcast_plan(heavy_cap, s.capacity, depth=48,
+                                        inline_k=1, out_capacity=out_capacity), key)
+        s_heavy = _membership(list_tables_s, s, key)
 
-    # list table: keys only, one partition
-    list_t = Table({key: heavy_keys}, n_heavy)
-    list_tables = build_lane2_tables(
-        list_t, _broadcast_plan(heavy_cap, r.capacity, depth=48, inline_k=1,
+    with span("tpq.skew.heavy"):
+        # heavy path: R's heavy rows in a small table, probed by all of S
+        r_heavy_small = compact(r, r_heavy).with_capacity(mini_cap)
+        heavy_out_cap = out_capacity // 2
+        mini_tables = build_lane2_tables(
+            r_heavy_small, _broadcast_plan(mini_cap, s.capacity, depth=64,
+                                           inline_k=8, out_capacity=heavy_out_cap),
+            key)
+        heavy_out, ok_heavy = lane2_probe_emit(mini_tables, s, heavy_out_cap,
+                                               key=key, r_names=r_names,
+                                               r_dtypes=r_dtypes)
+
+    # in a graph the span runs on through the splice (skew_hash_join)
+    with span("tpq.skew.light"):
+        # light path: the partitioned lane join of the rest
+        r_light, s_light = compact(r, ~r_heavy), compact(s, ~s_heavy)
+        light_tables = build_lane2_tables(
+            r_light, plan_lane2(r_light.capacity, s_light.capacity,
                                 out_capacity=out_capacity), key)
-    r_heavy = _membership(list_tables, r, key)
-    # the identity layout needs probe_cap == the prober's capacity
-    list_tables_s = list_tables
-    if s.capacity != r.capacity:
-        list_tables_s = build_lane2_tables(
-            list_t, _broadcast_plan(heavy_cap, s.capacity, depth=48,
-                                    inline_k=1, out_capacity=out_capacity), key)
-    s_heavy = _membership(list_tables_s, s, key)
+        light_out, ok_light = lane2_probe_emit(light_tables, s_light, out_capacity,
+                                               key=key, r_names=r_names,
+                                               r_dtypes=r_dtypes)
 
-    # heavy path: R's heavy rows in a small table, probed by all of S
-    r_heavy_small = compact(r, r_heavy).with_capacity(mini_cap)
-    heavy_out_cap = out_capacity // 2
-    mini_tables = build_lane2_tables(
-        r_heavy_small, _broadcast_plan(mini_cap, s.capacity, depth=64,
-                                       inline_k=8, out_capacity=heavy_out_cap),
-        key)
-    heavy_out, ok_heavy = lane2_probe_emit(mini_tables, s, heavy_out_cap,
-                                           key=key, r_names=r_names,
-                                           r_dtypes=r_dtypes)
-
-    # light path: the partitioned lane join of the rest
-    r_light, s_light = compact(r, ~r_heavy), compact(s, ~s_heavy)
-    light_tables = build_lane2_tables(
-        r_light, plan_lane2(r_light.capacity, s_light.capacity,
-                            out_capacity=out_capacity), key)
-    light_out, ok_light = lane2_probe_emit(light_tables, s_light, out_capacity,
-                                           key=key, r_names=r_names,
-                                           r_dtypes=r_dtypes)
+    # s_heavy holds live rows only, so the heavy probe rows are the live
+    # rows the light side did not keep: no reduction of its own, one
+    # element-wise kernel per counter
+    probe_rows = s.num_rows.to(I64)
+    observe("tpq.skew.heavy_keys", n_heavy)
+    observe("tpq.skew.heavy_probe_rows", probe_rows - s_light.num_rows)
+    observe("tpq.skew.probe_rows", probe_rows)
 
     ok_splice = light_out.num_rows.to(I64) + heavy_out_cap <= out_capacity
     # tpq/ops/skew_join.py:165-167 lacks this guard and splices a heavy
@@ -144,6 +159,7 @@ def skew_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
     from tpq_torch.jit import cond
     from tpq_torch.ops.union_join import union_join
 
+    attempt = marker()  # the split's spans, which the fallback discards
     light, heavy, ok = _split(r, s, out_capacity, key, heavy_cap, mini_cap,
                               stride, sample_threshold)
 
@@ -160,7 +176,8 @@ def skew_hash_join(r: Table, s: Table, out_capacity: int, key: str = "key",
         return Table(cols, light.num_rows + heavy.num_rows)
 
     # tpq's lax.cond(ok, splice, fallback) (tpq/ops/skew_join.py:182)
-    return cond(ok, splice, lambda: union_join(r, s, out_capacity, key=key))
+    return cond(ok, splice, lambda: union_join(r, s, out_capacity, key=key),
+                name="tpq.skew.ok", attempt=attempt)
 
 
 def skew_path_taken(r: Table, s: Table, out_capacity: int, key: str = "key",

@@ -38,6 +38,7 @@ import torch
 from tpq_torch.columnar import Table
 from tpq_torch.jit import cond
 from tpq_torch.ops._expand import expand_segments, last_start
+from tpq_torch.trace import span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -118,6 +119,7 @@ def _radix_union_sort(inv, k, side, vals: dict, key_bits: int):
     return out[0], k_s, out[3], vals_s
 
 
+@span("tpq.union_join")
 def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
                sort_engine: str = "lax", key_bits: int = 64) -> Table:
     """Inner equi-join R ⋈ S on `key` (see module docstring). tpq's
@@ -236,4 +238,4 @@ def union_join(r: Table, s: Table, out_capacity: int, key: str = "key",
         return Table(cols, total)
 
     # tpq's lax.cond(small_ok, inline, full expand) (tpq/ops/union_join.py:323)
-    return cond(small_ok, inline, full_expand)
+    return cond(small_ok, inline, full_expand, name="tpq.union.small_ok")
