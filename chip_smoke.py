@@ -85,19 +85,22 @@ Phases, one line each; any failure raises and exits non-zero:
                 2^19, out capacity 2^27): one pipeline with every launch
                 count zeroed just before it and read just after (PAD,
                 PACK once (the lane tail's), the fused walk/emit, the
-                hash (4 times) and the aggregate's run-end pass (once)
-                launched, nothing else), the lane pushdown path taken,
-                every group's key, count and sums equal to numpy's; the
-                pipeline once more with every call of those kernels held,
-                as it is made, byte-equal to its plain version; the fused
-                walk/emit's call timed, the hash at its largest call (the
-                201,326,592 padded probe keys), PACK at the lane tail's
-                call, and the run-end pass at the aggregate's call (2^27
-                rows, 331,291 groups, every output slot and the group
-                count byte-equal to its plain version) beside its plain
-                version and, in turns, the aggregate's sequence before it
-                (the plain version with the PACK kernel); end-to-end ms,
-                fact rows/s, groups, join rows and peak memory;
+                hash (4 times) and the aggregate's group table pass and
+                write (once each) launched, nothing else), the lane
+                pushdown path taken, every group's key, count and sums
+                equal to numpy's; the pipeline once more with every call
+                of those kernels held, as it is made, byte-equal to its
+                plain version; the fused walk/emit's call timed, the hash
+                at its largest call (the 201,326,592 padded probe keys),
+                PACK at the lane tail's call, the group table's pass and
+                write at the aggregate's call (2^27 rows, 331,291 groups)
+                beside their plain twins and the whole hash path in turns
+                with the sort path it replaced (byte-equal over the whole
+                capacity), and the run-end pass at the sort path's call
+                beside its plain version and, in turns, the sequence
+                before it (the plain version with the PACK kernel);
+                end-to-end ms, fact rows/s, groups, join rows and peak
+                memory;
  10. config4_chunked — scale_bench.bench_pipeline at 100M fact rows in
                 chunks of 2^22 on the device streams: first one eager run
                 off the clock with every PAD, PACK, walk/emit, hash and
@@ -233,6 +236,7 @@ def with_wrappers_replaced(run, replace):
     hash_aggregate = importlib.import_module("tpq_torch.ops.hash_aggregate")
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
                (scale_bench, "pad"), (hash_aggregate, "aggregate_runs"),
+               (hash_aggregate, "group_insert"), (hash_aggregate, "group_write"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
                (lane_table, "probe_walk"), (radix_sort, "split_digit"),
                (radix_sort, "lsd_radix_sort_bits"),
@@ -328,12 +332,36 @@ def agg_err(args, got) -> int:
     return max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
 
 
+def insert_err(args, got) -> int:
+    """The group table's pass: its slots follow the hash and the order of
+    the atomics, so it is held by what the write makes of it, every
+    output slot and the group count, against the twin's table, with
+    `ok` and the distinct count."""
+    from tpq_torch.kernels.group_table import group_insert_ref, group_write_ref
+
+    want = group_insert_ref(*args)
+    pairs = [(got.ok, want.ok), (got.inserted, want.inserted)]
+    if bool(want.ok):
+        a, b = group_write_ref(got), group_write_ref(want)
+        pairs += list(zip(a[0], b[0])) + [(a[1], b[1])]
+    return max_abs_err(pairs)
+
+
+def write_err(args, got) -> int:
+    """The group write over every output slot and the group count."""
+    from tpq_torch.kernels.group_table import group_write_ref
+
+    want = group_write_ref(*args)
+    return max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
+
+
 ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
-        "radix_histogram": hist_err, "hash_keys": hash_err, "aggregate_runs": agg_err}
+        "radix_histogram": hist_err, "hash_keys": hash_err, "aggregate_runs": agg_err,
+        "group_insert": insert_err, "group_write": write_err}
 
 
 # kept at their largest call
-LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs")
+LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs", "group_insert")
 
 
 def call_size(name, args) -> int:
@@ -342,7 +370,7 @@ def call_size(name, args) -> int:
     hash's keys, the aggregate's rows."""
     from tpq_torch.bench.kernel_ab import size
 
-    if name in ("hash_keys", "aggregate_runs"):
+    if name in ("hash_keys", "aggregate_runs", "group_insert"):
         return args[0].numel()
     return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
 
@@ -542,6 +570,68 @@ def agg_phase(K, args, label, record):
     phase("kernels", f"aggregate_runs ({label}): in turns with the sequence before it "
                      f"(plain + PACK kernel) {t_k:.4f} ms against {t_b:.4f} ms; that "
                      f"sequence on the card alone {rec['before_device_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sorted_args(args):
+    """The run-end pass's call on the sort path of the aggregate whose
+    group table takes `args` (key, values, num_rows)."""
+    from tpq_torch import Table
+    from tpq_torch.ops.merge_join import sort_table_by_key
+
+    key, values, num_rows = args
+    names = [f"v{i}" for i in range(len(values))]
+    ts = sort_table_by_key(Table({"key": key, **dict(zip(names, values))}, num_rows))
+    return ts.col("key"), [ts.col(n) for n in names], ts.num_rows
+
+
+def group_phase(K, args, groups):
+    """The group table's pass and write at the aggregate's call, each
+    against its plain twin; hash_aggregate byte-equal to the sort path it
+    replaced (sort_aggregate) over the whole capacity, then the hash
+    path's pass and write in turns with the sort path. The two kernels
+    share the aggregate's least bytes (agg_yardsticks): the pass's bound
+    is the live rows read, the write's every output slot written."""
+    from tpq_torch import Table
+    from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
+                                               group_write_ref)
+    from tpq_torch.ops.hash_aggregate import hash_aggregate, sort_aggregate
+
+    key, values, num_rows = args
+    table = group_insert(*args)
+    check(bool(table.ok) and int(table.inserted) == groups,
+          f"the group table at config 4: ok {bool(table.ok)}, {int(table.inserted)} keys")
+    nbytes, live = agg_yardsticks(args)
+    read = live * (key.element_size() + sum(v.element_size() for v in values))
+    label = (f"config-4 aggregate: key + {len(values)} values x {key.shape[0]} rows, "
+             f"{live} live, {groups} groups")
+    rec = K.hold("group_insert", label, lambda: group_insert(*args),
+                 lambda: group_insert_ref(*args), 3, insert_err(args, table), read)
+    K.hold("group_write", label, lambda: group_write(table), lambda: group_write_ref(table),
+           3, write_err((table,), group_write(table)), nbytes - read)
+    t = Table({"key": key, **{f"v{i}": v for i, v in enumerate(values)}}, num_rows)
+    by_hash, by_sort = hash_aggregate(t), sort_aggregate(t)
+    check(max_abs_err([(by_hash.num_rows, by_sort.num_rows)]
+                      + [(by_hash.columns[k], by_sort.columns[k]) for k in by_sort.columns])
+          == 0, "config 4: the hash path's aggregate differs from the sort path's")
+    del by_hash, by_sort
+    torch.cuda.empty_cache()
+    # the hash path's work without its cond, whose eager host read of `ok`
+    # would keep the host from running ahead of the card
+    def hash_path():
+        return group_write(group_insert(*args))
+
+    t_h, t_s = K.paired(hash_path, lambda: sort_aggregate(t), 3)
+    t_b = bound(nbytes)[0]
+    rec.update(groups=groups, hash_path_ms=t_h, hash_path_device_ms=K.device_ms(hash_path, 3),
+               sort_path_ms=t_s, sort_path_device_ms=K.device_ms(lambda: sort_aggregate(t), 3),
+               aggregate_bound_ms=t_b)
+    phase("kernels", f"config-4 aggregate: hash path {t_h:.4f} ms against the sort path "
+                     f"{t_s:.4f} ms in turns (byte-equal over the whole capacity); on the "
+                     f"card alone {rec['hash_path_device_ms']:.4f} against "
+                     f"{rec['sort_path_device_ms']:.4f} ms; bound {t_b:.4f} ms")
+    del table, t
     torch.cuda.empty_cache()
     return rec
 
@@ -906,6 +996,7 @@ def wrappers():
     """The kernel wrappers of the ported paths, by their JSON names."""
     from tpq_torch.hashing import hash_keys
     from tpq_torch.kernels.aggregate import aggregate_runs
+    from tpq_torch.kernels.group_table import group_insert, group_write
     from tpq_torch.kernels.lane2 import fused_walk_emit
     from tpq_torch.kernels.lane_table import probe_walk
     from tpq_torch.kernels.move import pack, pad
@@ -915,7 +1006,8 @@ def wrappers():
     return {"pad": pad, "pack": pack, "fused_walk_emit": fused_walk_emit,
             "probe_walk": probe_walk, "split1": split_digit,
             "radix_histogram": radix_histogram, "hash_keys": hash_keys,
-            "aggregate_runs": aggregate_runs}
+            "aggregate_runs": aggregate_runs, "group_insert": group_insert,
+            "group_write": group_write}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -1083,7 +1175,8 @@ KERNELS_OF = {"pad": ("pad_kernel",), "pack": ("pack_kernel",),
               "probe_walk": ("probe_walk_kernel",),
               "split1": ("digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel"),
               "radix_histogram": ("hist_shared_bins",), "hash_keys": ("hash_keys_kernel",),
-              "aggregate_runs": ("agg_runs_kernel",)}
+              "aggregate_runs": ("agg_runs_kernel",),
+              "group_insert": ("group_insert_kernel",), "group_write": ("group_write_kernel",)}
 
 
 def eager_port_kernels(fn, dev) -> dict:
@@ -1147,17 +1240,18 @@ def body_makes_no_host_read(dev, body) -> int:
     return len(preds)
 
 
-def jit_path(label, dev, call, second, want, want2):
+def jit_path(label, dev, call, second, want, want2, conds=1):
     """One jitted path (a join_fn call): its body once under the capture
-    flag with every sync raising; the first jitted call (capture, replay)
+    flag with every sync raising, recording `conds` preds (the join's,
+    and a pipeline's aggregate's); the first jitted call (capture, replay)
     and `second()` (a replay on other inputs) against `want` and `want2`,
     one graph and no rerun; the kernels of a profiled replay against an
     eager call's; end-to-end ms eager and jitted in turns."""
     from tpq_torch.bench.runner import cuda_time
     from tpq_torch.columnar import canonicalize, tables_equal
 
-    conds = body_makes_no_host_read(dev, call.eager)
-    check(conds == 1, f"{label}: {conds} conds in the body")
+    made = body_makes_no_host_read(dev, call.eager)
+    check(made == conds, f"{label}: {made} conds in the body, expected {conds}")
     check(tables_equal(canonicalize(call()), want), f"{label}: jitted call != oracle")
     check(tables_equal(canonicalize(second()), want2),
           f"{label}: replay on the second inputs != oracle")
@@ -1170,7 +1264,7 @@ def jit_path(label, dev, call, second, want, want2):
     e1, j1, j2, e2 = (cuda_time(f, dev, 5)[0] * 1e3
                       for f in (call.eager, call, call, call.eager))
     check(jitted.reruns == 0, f"{label}: a timed call reran")
-    phase("jit", f"{label}: body with no host read (sync debug mode error), 1 cond; "
+    phase("jit", f"{label}: body with no host read (sync debug mode error), {conds} cond(s); "
                  f"jitted calls == oracle on two inputs, 1 graph, 0 reruns; profiled "
                  f"replay kernels == eager {replay_k}; end_to_end eager "
                  f"{(e1 + e2) / 2:.4f} ms ({e1:.4f}, {e2:.4f}), jitted "
@@ -1240,7 +1334,7 @@ def jit_phase(dev, cfg1, cfg3, smoke_cfg, cfg4):
     out["smoke_pipeline"] = jit_path(
         f"smoke_pipeline (filter values {v}, {v2})", dev, call,
         lambda: call.jitted(dim2, fact2, v), oracle_pipeline(dim_np, fact_np, v),
-        oracle_pipeline(dim2_np, fact2_np, v))
+        oracle_pipeline(dim2_np, fact2_np, v), conds=2)
     del dim, fact, dim2, fact2, call
     torch.cuda.empty_cache()
 
@@ -1441,15 +1535,16 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     phase("config4", f"one pipeline (dim {cfg.r.rows}, fact {cfg.s.rows} rows of capacity "
                      f"{s.capacity}, out capacity {out_cap}): launches {launches}; peak "
                      f"memory {peak} B")
-    expect = {"pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs"}
+    expect = {"pad", "pack", "fused_walk_emit", "hash_keys", "group_insert", "group_write"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
     check(launches["hash_keys"] == HASH_LAUNCHES["config4"],
           f"{launches['hash_keys']} hash launches, expected {HASH_LAUNCHES['config4']}")
-    # the aggregate's run-end pass once; PACK once, the lane tail's
-    check(launches["aggregate_runs"] == 1 and launches["pack"] == 1,
-          f"{launches['aggregate_runs']} run-end and {launches['pack']} PACK launches, "
-          f"expected 1 and 1")
+    # the aggregate's group table, one pass and one write (no run-end
+    # pass: its `ok` holds); PACK once, the lane tail's
+    check((launches["group_insert"], launches["group_write"], launches["pack"]) == (1, 1, 1),
+          f"{launches['group_insert']} table passes, {launches['group_write']} writes and "
+          f"{launches['pack']} PACK launches, expected 1, 1 and 1")
     got = out.to_numpy()
     check(len(got["key"]) == len(truth["key"]) and groups_equal(got, truth),
           f"{len(got['key'])} groups differ from numpy's {len(truth['key'])}")
@@ -1486,7 +1581,7 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
         K, largest.pop("fused_walk_emit"), "config-4 pipeline", record=False)
     K.rec["fused_walk_emit"]["config4"]["device_ms_in_pipeline"] = walk_ms
     torch.cuda.empty_cache()
-    (cols, occ), agg_args = largest.pop("pack"), largest.pop("aggregate_runs")
+    (cols, occ), agg_args = largest.pop("pack"), largest.pop("group_insert")
     check(len(cols) == 1 and occ.shape[0] == 201_326_592,
           "the one PACK call is not the lane tail's over the padded queries")
     K.rec["pack"]["config4_tail"] = pack_phase(K, (cols, occ), "config-4 lane tail",
@@ -1497,7 +1592,8 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     check(key.shape[0] == out_cap and len(values) == 3 and int(num_rows) == join_rows,
           f"the aggregate's call: {key.shape[0]} rows, {len(values)} values, "
           f"{int(num_rows)} valid")
-    rec = agg_phase(K, agg_args, "config-4 aggregate", record=True)
+    group_phase(K, agg_args, len(truth["key"]))
+    rec = agg_phase(K, sorted_args(agg_args), "config-4 aggregate (sort path)", record=True)
     check(rec["groups"] == len(truth["key"]),
           f"the run-end pass's {rec['groups']} groups at config 4")
     del largest, agg_args, key, values, num_rows
@@ -2182,6 +2278,8 @@ def main():
                             "tpq/kernels/radix_partition.py:48"),
         "hash_keys": ("tpq_torch/csrc/hash.cu", "tpq/hashing.py:63"),
         "aggregate_runs": ("tpq_torch/csrc/aggregate.cu", "tpq/ops/hash_aggregate.py:59"),
+        "group_insert": ("tpq_torch/csrc/group_table.cu", "none (tpq sorts the capacity)"),
+        "group_write": ("tpq_torch/csrc/group_table.cu", "none (tpq sorts the capacity)"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,17 +1,23 @@
-"""tpq_torch's aggregate run-end pass (kernels/aggregate.py) on the CPU,
-where `aggregate_runs` runs its plain version: held to numpy's groups
-(np.unique's runs, uint64 sums) over the whole capacity, the zero rows
-past the groups included, on the cases of tests/torch_aggregate_cases.py.
-No tpq call: tests/test_torch_pipeline.py holds the whole aggregate to
-tpq's. Integer data: every comparison is exact."""
+"""tpq_torch's aggregate on the CPU, where the kernels run their plain
+versions: the sort path's run-end pass (kernels/aggregate.py) and the
+hash path's group table (kernels/group_table.py), each held to numpy's
+groups (np.unique, uint64 sums) over the whole capacity, the zero rows
+past the groups included, on the cases of tests/torch_aggregate_cases.py;
+the two paths of the aggregate held to each other. No tpq call:
+tests/test_torch_pipeline.py holds the whole aggregate to tpq's. Integer
+data: every comparison is exact."""
 
 import numpy as np
 import pytest
 import torch
 import torch_aggregate_cases as cases
 
-from tpq_torch.kernels import aggregate, move
+from tpq_torch.columnar import Table, next_pow2
+from tpq_torch.kernels import aggregate, group_table, move
 from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
+from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
+                                           group_write_ref)
+from tpq_torch.ops.hash_aggregate import hash_aggregate, sort_aggregate
 
 torch.set_num_threads(2)
 
@@ -77,3 +83,95 @@ def test_aggregate_state_is_its_own_per_width():
     finally:
         for k in keys:
             (move._PACK_STATE if len(k) == 2 else aggregate._AGG_STATE).pop(k, None)
+
+
+def _table(key, values, num_rows) -> Table:
+    cols = {"key": torch.from_numpy(key)}
+    cols.update((f"v{i}", torch.from_numpy(v)) for i, v in enumerate(values))
+    return Table(cols, num_rows)
+
+
+def _cols_equal(got, want) -> None:
+    assert [c.dtype for c in got] == [torch.from_numpy(w).dtype for w in want]
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("name", cases.CASES)
+def test_group_table_plain_matches_numpy_and_the_sort_path(name):
+    """The hash path's plain twins (group_insert_ref, then group_write_ref)
+    on each case's rows in random order: `ok`, the group count and every
+    output column byte-equal to numpy's over the whole capacity (zeros
+    from the group count on) and to the sort path's (sort_aggregate), with
+    num_rows an int32 and an int64 tensor; hash_aggregate's whole table
+    equal to sort_aggregate's. Cases: 0, 1, all and more than all rows
+    live, one key for every row, INT64_MAX and INT64_MIN keys, int32 keys
+    and values, wrapping sums, 0, 1, 14 and 15 value columns. Past
+    MAX_VALUES columns group_insert refuses the table (hash_aggregate
+    takes the sort path there) and the twins are held alone."""
+    key, values, num_rows = cases.hash_case(name)
+    want, g = cases.np_groups(key, values, num_rows)
+    k, vs = torch.from_numpy(key), [torch.from_numpy(v) for v in values]
+    wide = len(vs) > group_table.MAX_VALUES
+    if wide:
+        with pytest.raises(ValueError, match="MAX_VALUES"):
+            group_insert(k, vs, num_rows)
+    for dt in (torch.int32, torch.int64):
+        table = (group_insert_ref if wide else group_insert)(
+            k, vs, torch.tensor(num_rows, dtype=dt))
+        assert table.ok.dtype == torch.bool and bool(table.ok)
+        assert table.slots == 2 * next_pow2(len(key)) and int(table.inserted) == g
+        outs, groups = group_write(table)
+        assert groups.dtype == torch.int32 and int(groups) == g
+        _cols_equal(outs, want)
+    t = _table(key, values, num_rows)
+    by_hash, by_sort = hash_aggregate(t), sort_aggregate(t)
+    assert int(by_hash.num_rows) == int(by_sort.num_rows) == g
+    assert list(by_hash.columns) == list(by_sort.columns)
+    _cols_equal(list(by_sort.columns.values()), want)
+    _cols_equal(list(by_hash.columns.values()), want)
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_group_table_limit_is_distinct_keys(monkeypatch, past):
+    """MAX_SLOTS 64 (limit 32) under 3,000 rows of 32 distinct keys, or
+    33 (INT64_MAX, in its own slot, among them): `ok` is distinct keys <=
+    32, whatever the rows, and hash_aggregate's table is the sort path's
+    either way (past the limit the cond takes the sort path)."""
+    monkeypatch.setattr(group_table, "MAX_SLOTS", 64)
+    rng = np.random.default_rng(64 + past)
+    domain = np.concatenate([rng.choice(1 << 40, 31, replace=False) - (1 << 39),
+                             np.array([np.iinfo(np.int64).max] + [-7] * past, np.int64)])
+    assert domain.dtype == np.int64 and domain.max() == np.iinfo(np.int64).max
+    n, live = 4000, 3000
+    key = rng.choice(domain, n)
+    key[:len(domain)] = domain  # every key live
+    values = [rng.integers(0, 1 << 62, n), rng.integers(-9, 9, n).astype(np.int32)]
+    table = group_insert(torch.from_numpy(key), [torch.from_numpy(v) for v in values], live)
+    assert table.slots == 64 and table.limit == 32
+    assert int(table.inserted) == 32 + past and bool(table.ok) == (not past)
+    t = _table(key, values, live)
+    want, g = cases.np_groups(key, values, live)
+    assert g == 32 + past
+    _cols_equal(list(hash_aggregate(t).columns.values()), want)
+    _cols_equal(list(sort_aggregate(t).columns.values()), want)
+
+
+def test_group_table_takes_a_host_count_and_raises_off_cpu_and_cuda():
+    """num_rows as a Python int is the same call; the columns must be 1-D
+    int32 or int64 of one length; a table sizes itself from the
+    capacity, at most MAX_SLOTS slots."""
+    key, values, num_rows = cases.hash_case("int32")
+    k, vs = torch.from_numpy(key), [torch.from_numpy(v) for v in values]
+    a, ga = group_write(group_insert(k, vs, num_rows))
+    b, gb = group_write_ref(group_insert_ref(k, vs, torch.tensor(num_rows)))
+    assert int(ga) == int(gb)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError):
+        group_insert(k, [vs[0][:-1]], num_rows)
+    with pytest.raises(TypeError):
+        group_insert(k, [vs[0].to(torch.float32)], num_rows)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        group_insert(k.to("meta"), [], num_rows)
+    assert group_table.table_slots(1 << 12) == 1 << 13
+    assert group_table.table_slots(1 << 27) == group_table.MAX_SLOTS == 1 << 21

@@ -26,7 +26,9 @@ from tpq_torch.jit import deferred, jit
 from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, lane2_probe_emit, plan_lane2)
-from tpq_torch.kernels import aggregate, lane_table, move
+from tpq_torch.kernels import aggregate, group_table, lane_table, move
+from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
+                                           group_write_ref)
 from tpq_torch.kernels.lane_table import (SALT_H2, SALT_LANE, LanePlan, _probe_layout,
                                           build_lane_tables, probe_walk,
                                           probe_walk_ref, walk_ref)
@@ -36,6 +38,7 @@ from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, radix_histogram,
 from tpq_torch.kernels.radix_sort import (_split1, digit_passes, lsd_radix_sort_bits,
                                           split1_ref, split_digit, split_digit_ref)
 from tpq_torch.ops import hash_join, merge_join
+from tpq_torch.ops.filter import keep_mask
 from tpq_torch.ops.skew_join import skew_path_taken
 from tpq_torch.ops.union_join import union_sort_specs
 from tpq_torch.query import jit_pipeline
@@ -521,13 +524,13 @@ def test_radix_merge_on_card_matches_cpu(dev):
 
 
 def test_aggregate_pack_on_card_matches_plain(dev, monkeypatch):
-    """The aggregate's call that PACK made before the run-end kernel took
+    """The sort path's call that PACK made before the run-end kernel took
     it (2^19 rows, about 200,000 of them group ends): one run-end launch
     a call and no PACK launch, its outputs and group count byte-equal to
     the plain version (with the plain PACK and with the PACK kernel);
-    the whole aggregate equals the CPU's over the whole capacity, twice
+    the whole sort path equals the CPU's over the whole capacity, twice
     (a two-row group's sum wraps)."""
-    from tpq_torch.ops.hash_aggregate import hash_aggregate
+    from tpq_torch.ops.hash_aggregate import sort_aggregate
 
     agg_mod = importlib.import_module("tpq_torch.ops.hash_aggregate")
     cols = datagen.gen_relation_np(400_000, 250_000, payloads=3, seed=12)
@@ -539,7 +542,7 @@ def test_aggregate_pack_on_card_matches_plain(dev, monkeypatch):
 
     monkeypatch.setattr(agg_mod, "aggregate_runs", rec)
     packs, runs = pack.launches, aggregate_runs.launches
-    on_card = [hash_aggregate(Table.from_numpy(cols, device=dev)) for _ in range(2)]
+    on_card = [sort_aggregate(Table.from_numpy(cols, device=dev)) for _ in range(2)]
     assert pack.launches == packs and aggregate_runs.launches == runs + 2
     args = calls[0]
     assert len(calls) == 2 and len(args[1]) == 3 and args[0].shape[0] == 1 << 19
@@ -548,7 +551,7 @@ def test_aggregate_pack_on_card_matches_plain(dev, monkeypatch):
         _eq(got[1], want[1])
         for a, b in zip(got[0], want[0]):
             _eq(a, b)
-    on_cpu = hash_aggregate(Table.from_numpy(cols, device="cpu"))
+    on_cpu = sort_aggregate(Table.from_numpy(cols, device="cpu"))
     n = int(on_cpu.num_rows)
     assert int(on_card[0].num_rows) == n > 150_000
     for k in on_cpu.columns:
@@ -610,7 +613,8 @@ def test_jitted_hash_aggregate_replays_same_bytes(dev):
     """hash_aggregate jitted with its outputs handed off (the graph's own
     buffers, the whole capacity): the body makes no host read under the
     capture flag, two replays give the same bytes, the zeros past the
-    groups included, and equal the eager call's."""
+    groups included, and equal the eager call's; both take the group
+    table (`tpq.aggregate.ok`), so the graph holds no run-end state."""
     from tpq_torch.ops.hash_aggregate import hash_aggregate
 
     t = Table.from_numpy(datagen.gen_relation_np(300_000, 20_000, payloads=2, seed=9),
@@ -627,11 +631,151 @@ def test_jitted_hash_aggregate_replays_same_bytes(dev):
         _eq(first[k], v)
         _eq(second.columns[k], v)
     assert len(jitted._graphs) == 1 and jitted.reruns == 0
-    # the graph holds the run-end state it was captured with; no eager
-    # call shares it
-    held = next(iter(jitted._graphs.values())).run_states
+    assert jitted.stats()["conds"]["tpq.aggregate.ok"] == {"then": 2, "else": 0}
+    assert next(iter(jitted._graphs.values())).run_states == []
+
+
+@pytest.mark.parametrize("name", agg_cases.CASES)
+def test_group_table_kernels_match_plain(dev, name):
+    """tests/torch_aggregate_cases.py's rows in random order at 4x the
+    CPU's: the pass (group_insert) and the write (group_write) on the
+    card, with num_rows an int32 and an int64 tensor, twice: `ok`, the
+    distinct count, the group count and every output slot byte-equal to
+    the plain twins' and to numpy's, the two calls' bytes equal; the
+    write kernel equal to its twin on the kernel's own table; one launch
+    of each a call. Past MAX_VALUES (4) value columns group_insert refuses
+    the table, and hash_aggregate launches none and equals numpy (the
+    sort path)."""
+    from tpq_torch.ops.hash_aggregate import hash_aggregate
+
+    key, values, num_rows = agg_cases.hash_case(name, scale=4)
+    want_np, g = agg_cases.np_groups(key, values, num_rows)
+    k, vs = torch.from_numpy(key).to(dev), [torch.from_numpy(v).to(dev) for v in values]
+    if len(vs) > group_table.MAX_VALUES:
+        with pytest.raises(ValueError, match="MAX_VALUES"):
+            group_insert(k, vs, num_rows)
+        ins = group_insert.launches
+        names = [f"v{i}" for i in range(len(vs))]
+        got = hash_aggregate(Table(dict(zip(["key", *names], [k, *vs])), num_rows))
+        assert group_insert.launches == ins and int(got.num_rows) == g
+        for a, w in zip(got.columns.values(), want_np):
+            assert np.array_equal(a.cpu().numpy(), w)
+        return
+    for dt in (torch.int32, torch.int64):
+        nr = torch.tensor(num_rows, dtype=dt, device=dev)
+        want = group_write_ref(group_insert_ref(k, vs, nr))
+        firsts = []
+        for _ in range(2):
+            ins, wr = group_insert.launches, group_write.launches
+            table = group_insert(k, vs, nr)
+            got = group_write(table)
+            assert group_insert.launches == ins + 1
+            assert group_write.launches == wr + 1
+            assert bool(table.ok) and int(table.inserted) == g == int(got[1])
+            _agg_eq(got, want)
+            _agg_eq(group_write_ref(table), got)
+            firsts.append(got)
+        _agg_eq(firsts[0], firsts[1])
+        for a, w in zip(firsts[0][0], want_np):
+            assert np.array_equal(a.cpu().numpy(), w)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 100_000])
+def test_group_table_limit_on_card(dev, monkeypatch, extra):
+    """MAX_SLOTS 2^12 (limit 2^11) under 2^20 rows of 2^11 distinct keys
+    (INT64_MAX among them) and `extra` more: `ok` is distinct keys <=
+    2^11 on the card as in the twin; at the limit the kernel counts every
+    key and its groups are the twin's; far past it the pass stops early
+    (no probe loops on a full table) and the aggregate is the sort
+    path's."""
+    from tpq_torch.ops.hash_aggregate import hash_aggregate, sort_aggregate
+
+    monkeypatch.setattr(group_table, "MAX_SLOTS", 1 << 12)
+    rng = np.random.default_rng(12 + extra)
+    domain = np.concatenate([rng.choice(1 << 50, (1 << 11) - 1 + extra, replace=False),
+                             np.array([np.iinfo(np.int64).max], np.int64)])
+    n = 1 << 20
+    key = rng.choice(domain, n)
+    key[:len(domain)] = domain
+    vals = [rng.integers(0, 1 << 62, n), rng.integers(-9, 9, n).astype(np.int32)]
+    args = (torch.from_numpy(key).to(dev), [torch.from_numpy(v).to(dev) for v in vals],
+            torch.tensor(n, device=dev))
+    table, twin = group_insert(*args), group_insert_ref(*args)
+    assert table.slots == 1 << 12 and bool(table.ok) == bool(twin.ok) == (extra == 0)
+    if extra == 0:
+        assert int(table.inserted) == int(twin.inserted) == 1 << 11
+        _agg_eq(group_write(table), group_write_ref(twin))
+    t = Table(dict(zip(["key", "a", "b"], [args[0], *args[1]])), n)
+    by_hash, by_sort = hash_aggregate(t), sort_aggregate(t)
+    for name in by_sort.columns:
+        _eq(by_hash.columns[name], by_sort.columns[name])
+    _eq(by_hash.num_rows, by_sort.num_rows)
+
+
+def test_jitted_pipeline_takes_the_group_table(dev):
+    """The jitted lane pipeline at a small shape, three calls on new
+    seeds and filter values: the cond `tpq.aggregate.ok` takes the table
+    on every call, no rerun, one graph, every call's groups (the live
+    rows jit copies out) equal to the eager sort path's."""
+    from tpq_torch.ops.hash_aggregate import sort_aggregate
+
+    pipe = jit_pipeline(1 << 14, join_impl="lane")
+    for seed, value in ((1, 512), (2, 100), (3, 900)):
+        dim = Table.from_numpy(datagen.gen_relation_np(1024, 1024, payloads=1,
+                                                       seed=seed), device=dev)
+        fact = Table.from_numpy(datagen.gen_relation_np(8192, 1024, payloads=2,
+                                                        seed=seed + 10), device=dev)
+        got = pipe(dim, fact, value)
+        keep = keep_mask(fact, "key", "lt", value)
+        want = sort_aggregate(hash_join(dim, fact, 1 << 14, impl="lane", probe_keep=keep))
+        n = int(want.num_rows)
+        assert int(got.num_rows) == n > 0
+        for name in want.columns:
+            _eq(got.columns[name][:n], want.columns[name][:n])
+    assert pipe.stats()["conds"]["tpq.aggregate.ok"] == {"then": 3, "else": 0}
+    assert len(pipe._graphs) == 1 and pipe.reruns == 0
+
+
+def test_jitted_aggregate_fallback_byte_equal(dev, monkeypatch):
+    """hash_aggregate jitted over more groups than a 2^10-slot table's
+    limit, three calls: the first replay's `ok` is false, so it reruns
+    and captures the sort path's graph, which the second and third
+    replay with no rerun; every call byte-equal to sort_aggregate over
+    the whole capacity. The sort path's graph holds the run-end
+    look-back state it was captured with; no eager call shares it."""
+    from tpq_torch.ops.hash_aggregate import hash_aggregate, sort_aggregate
+
+    monkeypatch.setattr(group_table, "MAX_SLOTS", 1 << 10)
+    t = Table.from_numpy(datagen.gen_relation_np(300_000, 20_000, payloads=2, seed=9),
+                         device=dev)
+    want = sort_aggregate(t)
+    jitted = jit(hash_aggregate, hand_off=True)
+    for _ in range(3):
+        got = jitted(t)
+        _eq(got.num_rows, want.num_rows)
+        for name in want.columns:
+            _eq(got.columns[name], want.columns[name])
+    assert jitted.reruns == 1 and jitted.captures == 2
+    assert jitted.stats()["conds"]["tpq.aggregate.ok"] == {"then": 0, "else": 3}
+    held = [s for g in jitted._graphs.values() if g.path == (False,) for s in g.run_states]
     kept = [*aggregate._AGG_STATE.values(), *move._PACK_STATE.values()]
     assert held and not any(h is k for h in held for k in kept)
+
+
+def test_chunked_agg_core_captures_the_sort_path(dev):
+    """The chunked config-4 bench jitted (staged) at 600,000 fact rows in
+    chunks of 2^18: agg_core, a body that updates its accumulator in place
+    and may hold no cond, runs the sort path; it is captured once and
+    never reruns, nothing is captured in the loop, and every group is
+    exact."""
+    from tpq_torch.bench import scale_bench
+
+    rep = scale_bench.bench_pipeline(n_dim=1 << 18, n_fact=600_000, chunk_rows=1 << 18,
+                                     filter_value=1 << 17, device=dev, log=lambda _: None)
+    assert rep["groups_exact"] and rep["lane_path_taken_all_chunks"]
+    agg = rep["jit"]["agg_core"]
+    assert (agg["graphs"], agg["captures"], agg["reruns"]) == (1, 1, 0)
+    assert rep["loop_captures"] == 0
 
 
 def test_accumulator_pad_on_card_matches_plain(dev, monkeypatch):

@@ -78,14 +78,15 @@ def test_join_body_makes_no_host_read(name):
 @pytest.mark.parametrize("algo,impl", PIPELINES)
 def test_pipeline_body_makes_no_host_read(algo, impl):
     """The pipeline with filter_value as a device scalar (how jit passes
-    a traced number): no host read, one pred, the eager pipeline's rows
-    at the Python number."""
+    a traced number): no host read, two preds (the join's, then the
+    aggregate's table `ok`), both true, the eager pipeline's rows at the
+    Python number."""
     dim = _t(datagen.gen_relation_np(512, 512, payloads=1, seed=7))
     fact = _t(datagen.gen_relation_np(4096, 512, payloads=2, seed=8))
     with deferred() as preds, host_reads("raise"):
         out = full_pipeline(dim, fact, "key", "lt", torch.tensor(200), 1 << 13,
                             algo=algo, join_impl=impl)
-    assert len(preds) == 1 and bool(preds[0])
+    assert len(preds) == 2 and all(bool(p) for p in preds)
     want = full_pipeline(dim, fact, "key", "lt", 200, 1 << 13, algo=algo,
                          join_impl=impl)
     assert int(out.num_rows) == int(want.num_rows) > 0

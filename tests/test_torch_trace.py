@@ -97,8 +97,29 @@ def test_spans_by_name_and_one_record_per_call():
         assert rec["host_ms"]["signature"] > 0
     pipe = jit_pipeline(CAP, join_impl="lane")
     _, names, recs = _profiled(pipe, _rel(1000, 1024, 1), _rel(5000, 1024, 2, 2), 512)
-    assert {"tpq.filter.keep", "tpq.aggregate.sort", "tpq.aggregate.runs"} <= names
-    assert recs is not None and recs[0]["conds"] == [["tpq.lane.ok", True]]
+    assert {"tpq.filter.keep", "tpq.aggregate.hash", "tpq.aggregate.groups"} <= names
+    assert not {"tpq.aggregate.sort", "tpq.aggregate.runs"} & names
+    assert recs is not None
+    assert recs[0]["conds"] == [["tpq.lane.ok", True], ["tpq.aggregate.ok", True]]
+
+
+def test_aggregate_table_past_its_limit_falls_back_by_name(monkeypatch):
+    """A group table of 16 slots (limit 8) under more groups: the cond
+    `tpq.aggregate.ok` takes the sort path, whose spans run, and the
+    groups are the hash path's at full size."""
+    from tpq_torch.kernels import group_table
+
+    pipe = jit_pipeline(CAP, join_impl="lane")
+    args = (_rel(1000, 1024, 1), _rel(5000, 1024, 2, 2), 512)
+    want = pipe(*args)
+    monkeypatch.setattr(group_table, "MAX_SLOTS", 16)
+    out, names, recs = _profiled(pipe, *args)
+    assert recs[0]["conds"] == [["tpq.lane.ok", True], ["tpq.aggregate.ok", False]]
+    assert {"tpq.aggregate.hash", "tpq.aggregate.sort", "tpq.aggregate.runs"} <= names
+    assert "tpq.aggregate.groups" not in names
+    assert int(out.num_rows) == int(want.num_rows) > 8
+    for k in want.columns:
+        assert torch.equal(out.columns[k], want.columns[k]), k
 
 
 def test_deep_bucket_falls_back_by_name():

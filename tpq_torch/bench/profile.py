@@ -47,7 +47,8 @@ TOP = 12
 # hist_shared_bins), as the trace names them
 PORT_KERNELS = ("pad_kernel", "pack_kernel", "walk_emit_kernel", "probe_walk_kernel",
                 "digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel",
-                "hist_shared_bins", "hash_keys_kernel", "agg_runs_kernel")
+                "hist_shared_bins", "hash_keys_kernel", "agg_runs_kernel", "group_insert_kernel",
+                "group_write_kernel")
 
 
 def device_activities(prof) -> list[tuple[float, float, str]]:

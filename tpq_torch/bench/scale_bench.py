@@ -59,7 +59,7 @@ from tpq_torch.jit import Jitted, jit
 from tpq_torch.kernels.lane2 import build_lane2_tables, lane2_probe_emit, plan_lane2
 from tpq_torch.kernels.move import pad
 from tpq_torch.ops.filter import compact, keep_mask
-from tpq_torch.ops.hash_aggregate import hash_aggregate
+from tpq_torch.ops.hash_aggregate import sort_aggregate
 
 I64 = torch.int64
 
@@ -348,8 +348,9 @@ def bench_pipeline(n_dim: int = 1 << 20, n_fact: int = 100_000_000,
 
     def agg_core(state, out_cols, out_rows):
         # the state is updated in place (tpq's agg_core returns a new one
-        # into the donated buffers): one elementwise add a column
-        agg = hash_aggregate(Table(out_cols, out_rows))
+        # into the donated buffers): one elementwise add a column. The
+        # sort path: a body that updates its arguments may hold no cond
+        agg = sort_aggregate(Table(out_cols, out_rows))
         dest = agg.col("key").clamp(0, n_state - 1).to(torch.int32)
         padded, _ = pad([agg.col(n) for n in vnames], dest, agg.num_rows, n_state)
         for a, b in zip(state, padded):

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "tpq_copy": [P, P, I64, P],
     "tpq_stamp": [P, P],
     "tpq_aggregate_runs": [P, I32, P, P, I32, P, I32, I64, P, P, P, P, I64, P, P],
+    "tpq_group_insert": [P, I32, P, P, I32, P, I32, I64, P, P, P, I64, I64, P],
+    "tpq_group_write": [P, P, P, P, I32, P, P, I32, P, I64, I64, P, P],
 }
 
 _lib = None  # the loaded library, shared by every caller in the process
