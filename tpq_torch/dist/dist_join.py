@@ -25,12 +25,26 @@ form whose kernel launches can be counted and held, as a replay runs no
 Python wrapper. On a ProcessGroupMesh the body always runs eagerly (its
 ragged exchange reads split sizes on the host, multihost.py), chosen by
 the mesh type before any capture.
+
+Spans and counters (tpq_torch.trace). The body's top-level spans tile
+it: tpq.dist.skew (the split, with its heavy joins), tpq.dist.route (the
+owners and destination columns), tpq.dist.exchange (bucketing and the
+collective, once for R and once for each chunk of S or for all of the
+ring's hops), each shard's own lane spans (tpq.lane.build, .layout,
+.emit; the sorted local join's tpq.union_join), and tpq.dist.merge
+(each shard's concat and compact, the overflow all_gather). It observes
+tpq.dist.exchange_rows (the live rows its exchanges deliver),
+tpq.dist.exchange_slots (the slots of the tables they fill) and
+tpq.dist.overflow (the overflow vector's sum). The eager planner is the
+span tpq.dist.plan, its figures in the body's record
+(dist_hash_join_planned).
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from time import perf_counter_ns
 
 import numpy as np
 import torch
@@ -41,12 +55,13 @@ from tpq_torch.dist.mesh import owner_of
 from tpq_torch.dist.overlap import chunk_table, concat_tables
 from tpq_torch.dist.skew import (I64_MAX, _count_keys_in, detect_heavy_keys,
                                  is_key_in, replicate_rows)
-from tpq_torch.jit import Jitted, jit
+from tpq_torch.jit import Jitted, jit, observe
 from tpq_torch.kernels import radix_partition
 from tpq_torch.kernels.lane2 import (build_lane2_tables, lane2_probe_emit,
                                      plan_lane2)
 from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.ops.filter import compact
+from tpq_torch.trace import attached, span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -81,20 +96,29 @@ class DistTable:
 
     @classmethod
     def from_numpy(cls, cols: dict[str, np.ndarray], mesh) -> "DistTable":
-        """tpq's placement: per = ceil(n / nchips) rows per shard,
-        local_capacity = next_pow2(per), shard i holds rows
-        [i*per, (i+1)*per); this process places the shards it holds on
-        mesh.device."""
+        """tpq's placement of host columns (from_columns)."""
+        return cls.from_columns({k: torch.from_numpy(np.asarray(v)) for k, v in cols.items()},
+                                mesh)
+
+    @classmethod
+    def from_columns(cls, cols: dict[str, torch.Tensor], mesh) -> "DistTable":
+        """tpq's placement of live columns: per = ceil(n / nchips) rows per
+        shard, local_capacity = next_pow2(per), shard i holds rows
+        [i*per, (i+1)*per), zero past them; this process places the
+        shards it holds on mesh.device, wherever the columns are."""
         nchips = mesh.size
-        n = len(next(iter(cols.values())))
+        n = next(iter(cols.values())).shape[0]
         per = (n + nchips - 1) // nchips
         local_cap = next_pow2(per)
         shards = []
         for i in mesh.shard_ids:
             cnt = max(0, min(per, n - i * per))
-            shards.append(Table.from_numpy(
-                {k: v[i * per:i * per + cnt] for k, v in cols.items()},
-                capacity=local_cap, device=mesh.device))
+            part = {}
+            for k, v in cols.items():
+                buf = torch.zeros(local_cap, dtype=v.dtype, device=mesh.device)
+                buf[:cnt] = v[i * per:i * per + cnt]
+                part[k] = buf
+            shards.append(Table(part, cnt))
         return cls(shards)
 
     def shards_numpy(self) -> list[dict[str, np.ndarray]]:
@@ -180,32 +204,55 @@ def _join_body(r: DistTable, s: DistTable, mesh, out_capacity_per_shard: int,
     R, S = r.shards, s.shards
     held = range(len(R))
     dev = R[0].device
-    overflow = [torch.zeros((), dtype=I32, device=dev) for _ in held]
+    # what the exchanges deliver: live rows (0-d tensors) and bucket slots
+    delivered, slots = [], 0
 
-    r_heavy = [torch.zeros(t.capacity, dtype=torch.bool, device=dev) for t in R]
-    s_heavy = [torch.zeros(t.capacity, dtype=torch.bool, device=dev) for t in S]
-    heavy_out = None
+    def exchanged(tables):
+        nonlocal slots
+        delivered.append(torch.stack([t.num_rows for t in tables]).sum(dtype=I64))
+        slots += sum(t.capacity for t in tables)
+
+    r_heavy = s_heavy = heavy_out = None
+    overflow = [torch.zeros((), dtype=I32, device=dev) for _ in held]
     if skew is not None:
-        heavy_keys, _ = detect_heavy_keys(
-            [_sorted_keys(t, key) for t in R], [t.num_rows for t in R],
-            [_sorted_keys(t, key) for t in S], [t.num_rows for t in S], mesh,
-            skew.candidates_per_shard, skew.threshold)
-        r_heavy = [is_key_in(t.col(key), h) & t.valid_mask() for t, h in zip(R, heavy_keys)]
-        s_heavy = [is_key_in(t.col(key), h) & t.valid_mask() for t, h in zip(S, heavy_keys)]
-        # heavy build rows -> replicated everywhere; heavy probe rows stay
-        # local; the pair is emitted on the probe row's home shard
-        R_rep, rep_ovf = replicate_rows(R, r_heavy, mesh, skew.replica_capacity_per_shard)
-        heavy_out = [_local_join(algo, rr, compact(t, m), out_cap, key)
-                     for rr, t, m in zip(R_rep, S, s_heavy)]
-        overflow = [o + ro + (h.num_rows > out_cap).to(I32)
-                    for o, ro, h in zip(overflow, rep_ovf, heavy_out)]
+        with span("tpq.dist.skew"):
+            heavy_keys, _ = detect_heavy_keys(
+                [_sorted_keys(t, key) for t in R], [t.num_rows for t in R],
+                [_sorted_keys(t, key) for t in S], [t.num_rows for t in S], mesh,
+                skew.candidates_per_shard, skew.threshold)
+            r_heavy = [is_key_in(t.col(key), h) & t.valid_mask()
+                       for t, h in zip(R, heavy_keys)]
+            s_heavy = [is_key_in(t.col(key), h) & t.valid_mask()
+                       for t, h in zip(S, heavy_keys)]
+            # heavy build rows -> replicated everywhere; heavy probe rows
+            # stay local; the pair is emitted on the probe row's home shard
+            R_rep, rep_ovf = replicate_rows(R, r_heavy, mesh,
+                                            skew.replica_capacity_per_shard)
+            heavy_out = [_local_join(algo, rr, compact(t, m), out_cap, key)
+                         for rr, t, m in zip(R_rep, S, s_heavy)]
+            overflow = [o + ro + (h.num_rows > out_cap).to(I32)
+                        for o, ro, h in zip(overflow, rep_ovf, heavy_out)]
+
+    def dests(tables, heavy):
+        """Each row's owner; the heavy rows' the sentinel nchips, which
+        keeps them out of the buckets (so does bucket_by_dest for the
+        padding rows)."""
+        own = [owner_of(t.col(key), nchips) for t in tables]
+        return own if heavy is None else [torch.where(h, nchips, d)
+                                          for d, h in zip(own, heavy)]
 
     # light path: hash exchange (heavy rows diverted out of the buckets)
-    dest_r = [torch.where(h, nchips, owner_of(t.col(key), nchips)) for t, h in zip(R, r_heavy)]
-    dest_s = [torch.where(h, nchips, owner_of(t.col(key), nchips)) for t, h in zip(S, s_heavy)]
-    R2, r_ovf = exchange(R, dest_r, mesh, nchips, ex_cap,
-                         impl="dense" if exchange_impl == "ring" else exchange_impl)
-    overflow = [o + x for o, x in zip(overflow, r_ovf)]
+    with span("tpq.dist.route"):
+        dest_r, dest_s = dests(R, r_heavy), dests(S, s_heavy)
+        if exchange_impl != "ring":
+            s_chunks = [chunk_table(t, n_chunks) for t in S]
+            d_chunks = [chunk_table(Table({"d": d}, t.num_rows), n_chunks)
+                        for t, d in zip(S, dest_s)]
+    with span("tpq.dist.exchange"):
+        R2, r_ovf = exchange(R, dest_r, mesh, nchips, ex_cap,
+                             impl="dense" if exchange_impl == "ring" else exchange_impl)
+        overflow = [o + x for o, x in zip(overflow, r_ovf)]
+        exchanged(R2)
 
     if use_lane:
         # build ONCE per shard; every hop/chunk below only probes. lane_depth
@@ -261,35 +308,35 @@ def _join_body(r: DistTable, s: DistTable, mesh, out_capacity_per_shard: int,
     if exchange_impl == "ring":
         # the hop-pipelined ring: S arrives one ring hop at a time
         hop_cap = next_pow2(max(128, 2 * out_cap // nchips))
-        dc = [torch.where(t.valid_mask(), d, nchips) for t, d in zip(S, dest_s)]
-        hops = ring_hops(S, dc, mesh, nchips, ex_cap)
-        del dc
+        with span("tpq.dist.exchange"):
+            hops = ring_hops(S, dest_s, mesh, nchips, ex_cap)
+            for hop, hop_ovf in hops:
+                overflow = [o + x for o, x in zip(overflow, hop_ovf)]
+                exchanged(hop)
         # shard by shard (the same rows and overflow as hop by hop): one
         # shard's hop outputs are held at a time, not every shard's (at
         # hop_cap each, twice out_cap a shard), and a shard's R rows are
         # freed once it is merged (XLA frees by liveness)
         for i in held:
-            for hop, hop_ovf in hops:
-                overflow[i] = overflow[i] + hop_ovf[i]
+            for hop, _ in hops:
                 add_light(i, hop[i], hop_cap)
-            merge(i)
+            with span("tpq.dist.merge"):
+                merge(i)
             if use_lane:
                 lane_tables[i] = None
             else:
                 R2[i] = None
-        del hops, hop, hop_ovf  # S's buckets: every hop is a view of them
+        del hops, hop  # S's buckets: every hop is a view of them
     else:
         chunk_cap = out_cap // n_chunks
-        s_chunks = [chunk_table(t, n_chunks) for t in S]
-        d_chunks = [chunk_table(Table({"d": d}, t.num_rows), n_chunks)
-                    for t, d in zip(S, dest_s)]
         for c in range(n_chunks):
-            sc = [ch[c] for ch in s_chunks]
-            dc = [torch.where(t.valid_mask(), dch[c].col("d"), nchips)
-                  for t, dch in zip(sc, d_chunks)]
-            S2, s_ovf = exchange(sc, dc, mesh, nchips, ex_cap, impl=exchange_impl)
+            with span("tpq.dist.exchange"):
+                S2, s_ovf = exchange([ch[c] for ch in s_chunks],
+                                     [dch[c].col("d") for dch in d_chunks],
+                                     mesh, nchips, ex_cap, impl=exchange_impl)
+                overflow = [o + x for o, x in zip(overflow, s_ovf)]
+                exchanged(S2)
             for i in held:
-                overflow[i] = overflow[i] + s_ovf[i]
                 add_light(i, S2[i], chunk_cap)
                 # shard i's exchanged rows are dead once joined: free them
                 # before the next shard's join (XLA frees by liveness)
@@ -297,9 +344,14 @@ def _join_body(r: DistTable, s: DistTable, mesh, out_capacity_per_shard: int,
                 if R2 is not None and c == n_chunks - 1:
                     R2[i] = None
         lane_tables = None  # R's rows, dead once every chunk is joined
-        for i in held:
-            merge(i)
-    ovf = mesh.all_gather([o.reshape(1) for o in overflow])[0]
+    with span("tpq.dist.merge"):
+        if exchange_impl != "ring":
+            for i in held:
+                merge(i)
+        ovf = mesh.all_gather([o.reshape(1) for o in overflow])[0]
+        observe("tpq.dist.exchange_rows", torch.stack(delivered).sum())
+        observe("tpq.dist.exchange_slots", torch.full((), slots, dtype=I64, device=dev))
+        observe("tpq.dist.overflow", ovf.sum(dtype=I64))
     return DistTable(out_shards), ovf
 
 
@@ -319,7 +371,8 @@ def plan_dist_capacities(
          join cardinality sum_k cnt_R(k)*cnt_S(k) (sorted counts, no
          scatter) -> output capacity per shard.
     Returns (exchange_capacity, out_capacity_per_shard), each padded by
-    `safety` and rounded to a power of two. The same on every process."""
+    `safety` and rounded to a power of two. The same on every process.
+    `.host_reads` counts its reads of the host (two a call)."""
     nchips = mesh.size
 
     def dests(t: Table) -> torch.Tensor:
@@ -331,6 +384,7 @@ def plan_dist_capacities(
         # resolved at call time, so that a caller may wrap the kernel
         hists = [radix_partition.radix_histogram(dests(t), nchips + 1) for t in (R, S)]
         peaks.append(torch.maximum(hists[0][:nchips].max(), hists[1][:nchips].max()))
+    plan_dist_capacities.host_reads += 1
     per_bucket = int(mesh.pmax(peaks)[0])
     ex_cap = next_pow2(max(128, int(per_bucket * safety)))
 
@@ -346,9 +400,13 @@ def plan_dist_capacities(
         cnt_s = _count_keys_in(_sorted_keys(S, key), S.num_rows, _sorted_keys(R, key))
         total = torch.where(R.valid_mask(), cnt_s, 0).sum(dtype=I64)
         totals.append(torch.maximum(total, (ro + so).to(I64)))
+    plan_dist_capacities.host_reads += 1
     per_out = int(mesh.pmax(totals)[0])
     out_cap = next_pow2(max(256, int(per_out * safety)))
     return ex_cap, out_cap
+
+
+plan_dist_capacities.host_reads = 0
 
 
 def dist_hash_join_planned(
@@ -361,10 +419,19 @@ def dist_hash_join_planned(
     """Distributed join with capacities planned exactly from the data
     (plan_dist_capacities, eager: two host reads) instead of
     caller-supplied guesses, then dist_hash_join at the planned
-    capacities (jitted on a LocalMesh unless `eager=True`)."""
-    ex_cap, out_cap = plan_dist_capacities(r, s, mesh, key=key)
-    return dist_hash_join(r, s, mesh, out_capacity_per_shard=out_cap,
-                          exchange_capacity=ex_cap, key=key, **kwargs)
+    capacities (jitted on a LocalMesh unless `eager=True`). The plan is
+    the span tpq.dist.plan; its host ms (its last host read ends its
+    device work), host reads and capacities go into the body's record as
+    "plan" (trace.attached)."""
+    t0, reads = perf_counter_ns(), plan_dist_capacities.host_reads
+    with span("tpq.dist.plan"):
+        ex_cap, out_cap = plan_dist_capacities(r, s, mesh, key=key)
+    plan = {"ms": (perf_counter_ns() - t0) / 1e6,
+            "host_reads": plan_dist_capacities.host_reads - reads,
+            "exchange_capacity": ex_cap, "out_capacity_per_shard": out_cap}
+    with attached(plan=plan):
+        return dist_hash_join(r, s, mesh, out_capacity_per_shard=out_cap,
+                              exchange_capacity=ex_cap, key=key, **kwargs)
 
 
 def dist_hash_join_renegotiated(

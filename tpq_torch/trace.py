@@ -29,9 +29,14 @@ grown into the port's one tracing module).
         thrown away by a cond, or the whole replay by a rerun)}], the
         top-level spans in order, tiling the body;
       "conds": [[name, branch taken (True: then)]] of the named conds;
-      "observed": {name: value} of the values `jit.observe` recorded.
+      "observed": {name: value} of the values `jit.observe` recorded;
+      and the entries `attached` gives the calls made inside it (the
+      distributed join's eager planner: "plan").
     The replay's device ms is read with `elapsed_time` once the call's
     flags read has synchronised the stream.
+  * `attached(name=entry)` adds an eager step's figures to the records
+    of the jitted calls made inside it, so that a query of an eager
+    step and a jitted body still makes one record.
   * `trace_if(dir)` records a torch.profiler trace of a block (the CPU,
     and the card's kernels where one is present) into `dir` as a Chrome
     trace.
@@ -56,6 +61,9 @@ _RECORDS: collections.deque = collections.deque(maxlen=RING)
 # the marks of the graph being captured; None outside a capture
 _MARKS: contextvars.ContextVar = contextvars.ContextVar("tpq_torch_trace_marks",
                                                         default=None)
+# the entries `attached` adds to the records made inside it
+_ATTACHED: contextvars.ContextVar = contextvars.ContextVar("tpq_torch_trace_attached",
+                                                          default=None)
 
 
 def recording() -> bool:
@@ -79,7 +87,20 @@ def last_calls(n: int):
 
 
 def append(record: dict) -> None:
+    extra = _ATTACHED.get()
+    if extra:
+        record.update(extra)
     _RECORDS.append(record)
+
+
+@contextlib.contextmanager
+def attached(**entries):
+    """The records of the jitted calls made inside carry `entries` too."""
+    token = _ATTACHED.set({**(_ATTACHED.get() or {}), **entries})
+    try:
+        yield
+    finally:
+        _ATTACHED.reset(token)
 
 
 class Marks:
