@@ -23,11 +23,13 @@ Phases, one line each; any failure raises and exits non-zero:
                 (every pass held), then the sort at digit widths 4 to 8;
                 the u32 key hash at config 1's build keys (bucket ids
                 and h2, both salts), also held to numpy's twin on a
-                sample;
+                sample; the probe layout kernel at config 1's call
+                against its plain version, the sort path, in turns;
   4. config1  — the 1M x 1M uniform join, hash_join(impl="lane"): one
                 join with every launch count zeroed just before it and
-                read just after (PAD, PACK, the fused walk/emit and the
-                hash launched, nothing else; the hash 4 times), num_rows
+                read just after (PAD, PACK, the fused walk/emit, the
+                probe layout and the hash launched, nothing else; the
+                hash twice), num_rows
                 equal to numpy's count and the rows byte-equal to the
                 C++ oracle; then the bench
                 runner: the lane path taken, end-to-end ms, rows/s and
@@ -35,7 +37,8 @@ Phases, one line each; any failure raises and exits non-zero:
                 bench.profile's end to end;
   5. config3  — the 1M x 1M zipf-probe join, hash_join(impl="skew"), the
                 same way: PAD, PACK, the fused walk/emit, the probe
-                kernel and the hash (11 times) launched, rows byte-equal
+                kernel, the probe layout and the hash (9 times) launched,
+                rows byte-equal
                 to the oracle, the split path taken (`join_hash_skew`);
                 its heavy rows against
                 the heavy buffer (out_capacity // 2, past which the join
@@ -85,13 +88,16 @@ Phases, one line each; any failure raises and exits non-zero:
                 2^19, out capacity 2^27): one pipeline with every launch
                 count zeroed just before it and read just after (PAD,
                 PACK once (the lane tail's), the fused walk/emit, the
-                hash (4 times) and the aggregate's group table pass and
+                probe layout, the hash (twice) and the aggregate's group
+                table pass and
                 write (once each) launched, nothing else), the lane
                 pushdown path taken, every group's key, count and sums
                 equal to numpy's; the pipeline once more with every call
                 of those kernels held, as it is made, byte-equal to its
-                plain version; the fused walk/emit's call timed, the hash
-                at its largest call (the 201,326,592 padded probe keys),
+                plain version; the fused walk/emit's call timed, the
+                probe layout at its call (2^27 rows into 201,326,592
+                slots) beside the sort path, the hash over the 201,326,592
+                padded probe keys (the sort path's second hash),
                 PACK at the lane tail's call, the group table's pass and
                 write at the aggregate's call (2^27 rows, 331,291 groups)
                 beside their plain twins and the whole hash path in turns
@@ -235,6 +241,7 @@ def with_wrappers_replaced(run, replace):
     # the module (tpq_torch.ops exports the function under its name)
     hash_aggregate = importlib.import_module("tpq_torch.ops.hash_aggregate")
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
+               (lane_table, "probe_layout"),
                (scale_bench, "pad"), (hash_aggregate, "aggregate_runs"),
                (hash_aggregate, "group_insert"), (hash_aggregate, "group_write"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
@@ -355,30 +362,53 @@ def write_err(args, got) -> int:
     return max_abs_err(list(zip(got[0], want[0])) + [(got[1], want[1])])
 
 
+def layout_err(args, got) -> int:
+    """The layout against its plain version run on plain torch alone: the
+    hash and PAD it calls through lane_table's names (which a holder may
+    have replaced by its own) are their plain versions meanwhile."""
+    from tpq_torch.hashing import hash_keys_ref
+    from tpq_torch.kernels import lane_table
+    from tpq_torch.kernels.move import pad_ref
+
+    saved = lane_table.hash_keys, lane_table.pad
+    lane_table.hash_keys, lane_table.pad = hash_keys_ref, pad_ref
+    try:
+        want = lane_table.probe_layout_ref(*args)
+    finally:
+        lane_table.hash_keys, lane_table.pad = saved
+    (qk, pays, lane, qocc, ovf), (wqk, wpays, wlane, wqocc, wovf) = got, want
+    check(len(pays) == len(wpays), "probe_layout: payload columns")
+    return max_abs_err(list(zip([qk, *pays, lane, qocc, ovf], [wqk, *wpays, wlane, wqocc, wovf])))
+
+
 ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
         "radix_histogram": hist_err, "hash_keys": hash_err, "aggregate_runs": agg_err,
-        "group_insert": insert_err, "group_write": write_err}
+        "group_insert": insert_err, "group_write": write_err, "probe_layout": layout_err}
 
 
 # kept at their largest call
-LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs", "group_insert")
+LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs", "group_insert",
+           "probe_layout")
 
 
 def call_size(name, args) -> int:
     """What picks a join's largest call: PAD's and PACK's output slots
     times row width (kernel_ab.size), the walk/emit's padded queries, the
-    hash's keys, the aggregate's rows."""
+    hash's keys, the aggregate's rows, the layout's padded slots."""
     from tpq_torch.bench.kernel_ab import size
 
     if name in ("hash_keys", "aggregate_runs", "group_insert"):
         return args[0].numel()
+    if name == "probe_layout":
+        return args[0].npart * args[0].probe_cap
     return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
 
 
 def hold_kernel_calls(run, keep=LARGEST):
     """Runs `run()` with every call of PAD, PACK, the fused walk/emit, the
-    histogram, the hash and the aggregate's run-end pass held, as it is
-    made, against the plain version on the same inputs; the walk/emit is
+    histogram, the hash, the aggregate's run-end pass, its group table and
+    the probe layout held, as it is made, against the plain version on
+    the same inputs; the walk/emit is
     also timed on the card alone at every call. The plain version's buffers go back to the card after each
     check, so that they do not split the memory the run itself needs.
     Returns ({name: (calls, largest max_abs_err)}, {name in `keep`: the
@@ -412,13 +442,15 @@ def hold_kernel_calls(run, keep=LARGEST):
 
 
 # hash_keys launches of one join or pipeline, from the code: the lane
-# build hashes twice (bucket, h2), a partitioned probe layout twice
-# (bucket, lane of the padded keys), an identity layout once. Config 3:
-# the list table's build (2), both memberships (1 each), the heavy mini
-# table (2 + 1) and the light join (4). Config 5, per shard: owner_of
-# twice for the planner's histograms, twice for its keys-only exchange
-# and twice for the join's, then the light lane join (4).
-HASH_LAUNCHES = {"config1": 4, "config3": 11, "merge": 0, "config4": 4,
+# build hashes twice (bucket, h2), a probe layout on its sort path
+# (plans past LAYOUT_MAX_PARTS partitions) twice (bucket, lane of the
+# padded keys), an identity layout once, the layout kernel (configs 1,
+# 3 and 4: 512 partitions) never. Config 3: the list table's build (2),
+# both memberships (1 each), the heavy mini table (2 + 1) and the light
+# join's build (2). Config 5, per shard: owner_of twice for the
+# planner's histograms, twice for its keys-only exchange and twice for
+# the join's, then the light lane join (4: 16,384 partitions).
+HASH_LAUNCHES = {"config1": 2, "config3": 9, "merge": 0, "config4": 2,
                  "dist": 8 * (6 + 4)}
 
 # Launches of one 8-shard join of the dist benches (the sorted local
@@ -658,6 +690,30 @@ def pack_phase(K, args, label, record):
                   nbytes, library=library, record=record)
 
 
+def layout_yardsticks(args) -> int:
+    """The bytes a probe layout must move: the key, the payloads and keep
+    read once, every slot of the key, the payloads, lane and qocc written
+    once."""
+    plan, s, key, keep = args
+    n, u = s.capacity, plan.npart * plan.probe_cap
+    ncols = len(s.names)
+    return n * (8 * ncols + (1 if keep is not None else 0)) + u * (8 * ncols + 8)
+
+
+def layout_phase(K, args, label, record):
+    """The layout kernel at one call against its plain version, which is
+    the sort path (tpq's stable sort and PAD, with the hash and PAD
+    kernels), in turns."""
+    from tpq_torch.kernels.lane_table import probe_layout, probe_layout_ref
+
+    plan, s = args[0], args[1]
+    got = probe_layout(*args)
+    return K.hold("probe_layout", f"{label}: {s.capacity} rows, {len(s.names) - 1} "
+                                  f"payloads -> {plan.npart} x {plan.probe_cap} slots",
+                  lambda: probe_layout(*args), lambda: probe_layout_ref(*args), 5,
+                  layout_err(args, got), layout_yardsticks(args), record=record)
+
+
 def hash_phase(K, args, label, record):
     """The hash at one call: byte-equal to its plain chain and, on a
     sample of 65,536 keys or fewer, to numpy's twin; bound by its 12
@@ -869,9 +925,9 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     calls = record_kernel_calls(lambda: lane2_hash_join(r1, s1, cap1))
     for _ in range(3):  # clocks and the caching allocator settle first
         lane2_hash_join(r1, s1, cap1)
-    check(set(calls) == {"pad", "pack", "fused_walk_emit", "hash_keys"},
+    check(set(calls) == {"pad", "pack", "fused_walk_emit", "hash_keys", "probe_layout"},
           f"config 1 reached kernels {sorted(calls)}")
-    check(len(calls["pad"]) == 3, "expected build, probe and tail-window PAD calls")
+    check(len(calls["pad"]) == 2, "expected build and tail-window PAD calls")
     check(len(calls["hash_keys"]) == HASH_LAUNCHES["config1"],
           f"{len(calls['hash_keys'])} hash calls at config 1")
     (h_args, h2_args), salts = calls["hash_keys"][:2], (SALT_LANE, SALT_H2)
@@ -882,8 +938,10 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     K.rec["hash_keys"] = {
         "config1_build": hash_phase(K, h_args, "config-1 build buckets", record=False),
         "config1_build_h2": hash_phase(K, h2_args, "config-1 build h2", record=False)}
-    for label, args in zip(("build", "probe", "tail window"), calls["pad"]):
+    for label, args in zip(("build", "tail window"), calls["pad"]):
         pad_phase(K, args, label, record=label == "build")
+    (args,) = calls["probe_layout"]
+    layout_phase(K, args, "config 1", record=True)
     (args,) = calls["pack"]
     pack_phase(K, args, "config-1 tail", record=True)
     (args,) = calls["fused_walk_emit"]
@@ -998,7 +1056,7 @@ def wrappers():
     from tpq_torch.kernels.aggregate import aggregate_runs
     from tpq_torch.kernels.group_table import group_insert, group_write
     from tpq_torch.kernels.lane2 import fused_walk_emit
-    from tpq_torch.kernels.lane_table import probe_walk
+    from tpq_torch.kernels.lane_table import probe_layout, probe_walk
     from tpq_torch.kernels.move import pack, pad
     from tpq_torch.kernels.radix_partition import radix_histogram
     from tpq_torch.kernels.radix_sort import split_digit
@@ -1007,7 +1065,7 @@ def wrappers():
             "probe_walk": probe_walk, "split1": split_digit,
             "radix_histogram": radix_histogram, "hash_keys": hash_keys,
             "aggregate_runs": aggregate_runs, "group_insert": group_insert,
-            "group_write": group_write}
+            "group_write": group_write, "probe_layout": probe_layout}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -1059,7 +1117,8 @@ def config1_phase(dev, cfg, hbm_bw):
     from tpq_torch.bench.runner import gen, join_fn, out_capacity_for, phase_report
 
     launches, _, op = run_path("config1", dev, cfg,
-                               {"pad", "pack", "fused_walk_emit", "hash_keys"},
+                               {"pad", "pack", "fused_walk_emit", "hash_keys",
+                                "probe_layout"},
                                "join_hash_lane", hbm_bw)
     phases = phase_report(cfg, device=dev)
     phase("config1", "phases (ms): " + ", ".join(
@@ -1093,7 +1152,7 @@ def config3_phase(dev, cfg, hbm_bw):
     try:
         launches, s_np, _ = run_path(
             "config3", dev, cfg,
-            {"pad", "pack", "fused_walk_emit", "probe_walk", "hash_keys"},
+            {"pad", "pack", "fused_walk_emit", "probe_walk", "hash_keys", "probe_layout"},
             "join_hash_skew", hbm_bw)
     finally:
         skew_join._split = split
@@ -1176,7 +1235,9 @@ KERNELS_OF = {"pad": ("pad_kernel",), "pack": ("pack_kernel",),
               "split1": ("digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel"),
               "radix_histogram": ("hist_shared_bins",), "hash_keys": ("hash_keys_kernel",),
               "aggregate_runs": ("agg_runs_kernel",),
-              "group_insert": ("group_insert_kernel",), "group_write": ("group_write_kernel",)}
+              "group_insert": ("group_insert_kernel",), "group_write": ("group_write_kernel",),
+              "probe_layout": ("layout_count_kernel", "layout_scan_kernel",
+                               "layout_scatter_kernel")}
 
 
 def eager_port_kernels(fn, dev) -> dict:
@@ -1535,7 +1596,8 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     phase("config4", f"one pipeline (dim {cfg.r.rows}, fact {cfg.s.rows} rows of capacity "
                      f"{s.capacity}, out capacity {out_cap}): launches {launches}; peak "
                      f"memory {peak} B")
-    expect = {"pad", "pack", "fused_walk_emit", "hash_keys", "group_insert", "group_write"}
+    expect = {"pad", "pack", "fused_walk_emit", "hash_keys", "group_insert", "group_write",
+              "probe_layout"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
     check(launches["hash_keys"] == HASH_LAUNCHES["config4"],
@@ -1570,12 +1632,24 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     del r, s, pipe
     largest.pop("pad")
     torch.cuda.empty_cache()
-    keys, bits, salt = largest.pop("hash_keys")
-    check(keys.numel() == 201_326_592, f"the largest hash call took {keys.numel()} keys, "
-                                       f"not the probe layout's padded keys")
-    K.rec["hash_keys"].update(hash_phase(
-        K, (keys, bits, salt), "config-4 padded probe keys (largest call)", record=False))
+    keys = largest.pop("hash_keys")[0]
+    check(keys.numel() == cfg.r.rows, f"the largest hash call took {keys.numel()} keys, "
+                                      f"not the build's {cfg.r.rows}")
     del keys
+    layout_args = largest.pop("probe_layout")
+    K.rec["probe_layout"]["config4"] = layout_phase(K, layout_args, "config-4 pipeline",
+                                                    record=False)
+    torch.cuda.empty_cache()
+    # the hash's main record: the padded probe keys, which the layout's
+    # sort path (plans past LAYOUT_MAX_PARTS) hashes a second time; the
+    # pipeline's own hash calls are the build's, L2-resident
+    from tpq_torch.kernels.lane_table import SALT_LANE, probe_layout
+
+    qk = probe_layout(*layout_args)[0]
+    K.rec["hash_keys"].update(hash_phase(
+        K, (qk, layout_args[0].pbits + 7, SALT_LANE),
+        "config-4 padded probe keys (the sort path's second hash)", record=False))
+    del qk, layout_args
     torch.cuda.empty_cache()
     K.rec["fused_walk_emit"]["config4"] = fused_phase(
         K, largest.pop("fused_walk_emit"), "config-4 pipeline", record=False)
@@ -1614,11 +1688,12 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
 
 
 # Launches of the scale benches' programs, from the code: the lane build
-# hashes twice (bucket, h2) and PADs once; a chunk's probe hashes twice
-# (bucket, lane of the padded keys), PADs its layout, walks and emits
-# once, then PACKs and PADs the lane tail; config 4's chunk also runs
-# its aggregate's run-end pass once and PADs the groups into the
-# accumulator, and its finalize PACKs the groups once. A bench run
+# hashes twice (bucket, h2) and PADs once; a chunk's probe layout is the
+# layout kernel at config 4's 512 partitions and the sort path at config
+# 2's 8,192 (two hashes: bucket, lane of the padded keys; one PAD); a
+# chunk walks and emits once, then PACKs and PADs the lane tail; config
+# 4's chunk also runs its aggregate's run-end pass once and PADs the
+# groups into the accumulator, and its finalize PACKs the groups once. A bench run
 # builds twice (the warm-up's tables, the timed build), runs
 # min(2, nchunks) warm-up chunks before its loop, and config 4 finalizes
 # once in the warm-up and once a loop.
@@ -1626,7 +1701,8 @@ LANE_BUILD = {"hash_keys": 2, "pad": 1}
 LANE_CHUNK = {"hash_keys": 2, "pad": 2, "pack": 1, "fused_walk_emit": 1}
 SCALE_LAUNCHES = {
     "config4_chunked": {"build": LANE_BUILD,
-                        "chunk": {**LANE_CHUNK, "pad": 3, "aggregate_runs": 1},
+                        "chunk": {"pad": 2, "pack": 1, "fused_walk_emit": 1,
+                                  "probe_layout": 1, "aggregate_runs": 1},
                         "finalize": {"pack": 1}, "warm_finalizes": 1},
     "config2": {"build": LANE_BUILD, "chunk": LANE_CHUNK, "finalize": {},
                 "warm_finalizes": 0},
@@ -1643,7 +1719,8 @@ def scale_launches(label, nchunks, whole_run) -> dict:
         builds, chunks, fins = 2, nchunks + min(2, nchunks), fins + c["warm_finalizes"]
     counts = {k: builds * c["build"].get(k, 0) + chunks * c["chunk"].get(k, 0)
               + fins * c["finalize"].get(k, 0)
-              for k in ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs")}
+              for k in ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs",
+                        "probe_layout")}
     return {k: n for k, n in counts.items() if n}
 
 
@@ -2280,6 +2357,8 @@ def main():
         "aggregate_runs": ("tpq_torch/csrc/aggregate.cu", "tpq/ops/hash_aggregate.py:59"),
         "group_insert": ("tpq_torch/csrc/group_table.cu", "none (tpq sorts the capacity)"),
         "group_write": ("tpq_torch/csrc/group_table.cu", "none (tpq sorts the capacity)"),
+        "probe_layout": ("tpq_torch/csrc/layout.cu",
+                         "none (tpq's stable sort and PAD, tpq/kernels/lane_table.py:232)"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 import torch_aggregate_cases as agg_cases
+import torch_layout_cases as layout_cases
 import torch_move_cases as cases
 import torch_skew_cases as skew_cases
 from torch_host_reads import host_reads
@@ -29,9 +30,10 @@ from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
 from tpq_torch.kernels import aggregate, group_table, lane_table, move
 from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
                                            group_write_ref)
-from tpq_torch.kernels.lane_table import (SALT_H2, SALT_LANE, LanePlan, _probe_layout,
-                                          build_lane_tables, probe_walk,
-                                          probe_walk_ref, walk_ref)
+from tpq_torch.kernels.lane_table import (LAYOUT_MAX_PARTS, SALT_H2, SALT_LANE, LanePlan,
+                                          _probe_layout, build_lane_tables, probe_layout,
+                                          probe_layout_ref, probe_walk, probe_walk_ref,
+                                          walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
 from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, radix_histogram,
                                                radix_histogram_ref)
@@ -240,6 +242,120 @@ def test_fused_walk_emit_contract_cases(dev, case):
         _eq(d_first, ref_df)
         for a, b in zip(outs, ref_outs):
             _eq(a[:n], b[:n])
+
+
+# rows of each partition count's layout cases on the card: many 4,096-row
+# tiles and a ragged last one
+LAYOUT_ROWS = {2: 3 * 4096 + 1234, 8: 50_001, 512: (1 << 20) + 4097}
+
+
+def _layout_inputs(dev, case, npart, rows=None):
+    plan, cols, num_rows, keep = layout_cases.layout_case(case, npart,
+                                                          rows or LAYOUT_ROWS[npart])
+    s = Table({k: torch.from_numpy(v).to(dev) for k, v in cols.items()}, num_rows)
+    return plan, s, torch.from_numpy(keep).to(dev) if keep is not None else None
+
+
+def _layout_eq(got, want):
+    (qk, pays, lane, qocc, ovf), (wqk, wpays, wlane, wqocc, wovf) = got, want
+    assert len(pays) == len(wpays)
+    for a, b in zip([qk, *pays, lane, qocc, ovf], [wqk, *wpays, wlane, wqocc, wovf]):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("npart", [2, 8, 512])
+@pytest.mark.parametrize("case", layout_cases.CASES)
+def test_probe_layout_kernel_matches_plain(dev, case, npart):
+    """The layout kernel against its plain version (the sort path), byte
+    for byte over all u slots, dead slots included: keep none, half or
+    all false, rows past num_rows, num_rows 0, an overflowing partition
+    (rows ranked past probe_cap dropped, overflow set), int32 columns,
+    0 to 3 payloads; probe_cap 2 x the mean load + 21, so that no tile
+    size divides u. One launch a call; a second call writes the same
+    bytes; the entry point takes the kernel."""
+    plan, s, keep = _layout_inputs(dev, case, npart)
+    before = probe_layout.launches
+    first = probe_layout(plan, s, "key", keep)
+    second = probe_layout(plan, s, "key", keep)
+    third = _probe_layout(plan, s, "key", keep)
+    assert probe_layout.launches == before + 3
+    want = probe_layout_ref(plan, s, "key", keep)
+    assert bool(want[4]) == (case == "overflow")
+    for got in (first, second, third):
+        _layout_eq(got, want)
+
+
+@pytest.mark.parametrize("shape", ["past_the_limit", "identity"])
+def test_probe_layout_takes_the_sort_path_by_shape(dev, shape):
+    """A plan past LAYOUT_MAX_PARTS partitions (the sort path) and the
+    identity layout (one partition as wide as the table) go to
+    probe_layout_ref with no launch of the layout kernel, which refuses
+    both."""
+    if shape == "past_the_limit":
+        plan, s, keep = _layout_inputs(dev, "keep_half", 2 * LAYOUT_MAX_PARTS, 300_001)
+    else:
+        _, s, keep = _layout_inputs(dev, "keep_half", 8, 1 << 16)
+        plan = LanePlan(pbits=0, depth=48, probe_cap=s.capacity, inline_k=4,
+                        tail_rows_cap=2048, tail_out_cap=4096)
+    before = probe_layout.launches
+    got = _probe_layout(plan, s, "key", keep)
+    assert probe_layout.launches == before
+    _layout_eq(got, probe_layout_ref(plan, s, "key", keep))
+    with pytest.raises(ValueError):
+        probe_layout(plan, s, "key", keep)
+    assert probe_layout.launches == before
+
+
+LAYOUT_KERNELS = ("layout_count_kernel", "layout_scan_kernel", "layout_scatter_kernel")
+
+
+def _traced_port_kernels(dev, fn, traces=3) -> dict:
+    """{kernel of tpq_torch/csrc: launches} of one call of fn(), the most
+    over a few traces (a trace can lose a device item, never add one)."""
+    from tpq_torch.bench.profile import device_activities, port_launches
+
+    most: dict = {}
+    for _ in range(traces):
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        for k, n in port_launches(device_activities(prof)).items():
+            most[k] = max(most.get(k, 0), n)
+    return most
+
+
+def test_probe_layout_launches_each_kernel_once(dev):
+    """A call at config 1's plan (512 partitions) launches the count, the
+    scan (with the dead slots' fill) and the scatter once each and no
+    other kernel of the port."""
+    plan, s, keep = _layout_inputs(dev, "keep_half", 512)
+    probe_layout(plan, s, "key", keep)
+    assert _traced_port_kernels(dev, lambda: probe_layout(plan, s, "key", keep)) == {
+        k: 1 for k in LAYOUT_KERNELS}
+
+
+def test_jitted_pipeline_launches_the_layout_kernel(dev):
+    """jit_pipeline at a 512-partition plan (600,000 dimension rows in a
+    2^20 capacity, so that no bucket passes the depth): the graph's
+    replay launches each layout kernel once, and two filter values give
+    the rows of its eager call (`__wrapped__`), one graph, no rerun."""
+    pipe = jit_pipeline(1 << 22, join_impl="lane")
+    dim = Table.from_numpy(datagen.gen_relation_np(600_000, 1 << 20, payloads=1, seed=7),
+                           capacity=1 << 20, device=dev)
+    fact = Table.from_numpy(datagen.gen_relation_np(1 << 21, 1 << 20, payloads=2, seed=8),
+                            device=dev)
+    assert plan_lane2(dim.capacity, fact.capacity).npart == 512
+    for value in (1 << 19, 1 << 18):
+        got, want = pipe(dim, fact, value), pipe.__wrapped__(dim, fact, value)
+        n = int(want.num_rows)
+        assert int(got.num_rows) == n > 0
+        for name in want.columns:
+            _eq(got.columns[name][:n], want.columns[name][:n])
+    launched = _traced_port_kernels(dev, lambda: pipe(dim, fact, 1 << 19))
+    assert {k: launched.get(k, 0) for k in LAYOUT_KERNELS} == {k: 1 for k in LAYOUT_KERNELS}
+    assert len(pipe._graphs) == 1 and pipe.reruns == 0
 
 
 @pytest.mark.parametrize("impl", ["lane", "sorted"])
@@ -1252,14 +1368,16 @@ def test_jit_carried_state_updated_in_place_is_exact(dev):
 @pytest.mark.parametrize("site", ["build", "probe_layout", "sort_rows"])
 def test_sort_sites_under_a_graph_equal_eager(dev, site):
     """The three sorts whose device copies a graph runs as memcpy nodes
-    (the build's composite sort, the probe layout's partition sort,
-    sort_rows under the aggregate), captured and replayed on new inputs:
-    every output byte-equal to the eager call's."""
+    (the build's composite sort, the probe layout's partition sort on
+    its sort path, probe_layout_ref, which plans past LAYOUT_MAX_PARTS
+    partitions take, sort_rows under the aggregate), captured and
+    replayed on new inputs: every output byte-equal to the eager
+    call's."""
     from tpq_torch.kernels.radix_sort import sort_rows
 
     plan = plan_lane2(1 << 20, 1 << 20, out_capacity=1 << 21)
     body = {"build": lambda t: build_lane2_tables(t, plan),
-            "probe_layout": lambda t: _probe_layout(plan, t, "key"),
+            "probe_layout": lambda t: probe_layout_ref(plan, t, "key"),
             "sort_rows": lambda t: sort_rows(t)}[site]
     jitted = jit(body)
     for seed in (40, 41):

@@ -48,7 +48,8 @@ TOP = 12
 PORT_KERNELS = ("pad_kernel", "pack_kernel", "walk_emit_kernel", "probe_walk_kernel",
                 "digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel",
                 "hist_shared_bins", "hash_keys_kernel", "agg_runs_kernel", "group_insert_kernel",
-                "group_write_kernel")
+                "group_write_kernel", "layout_count_kernel", "layout_scan_kernel",
+                "layout_scatter_kernel")
 
 
 def device_activities(prof) -> list[tuple[float, float, str]]:

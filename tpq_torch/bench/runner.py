@@ -169,7 +169,7 @@ def phase_report(cfg: BenchConfig, device="cuda", iters: int = 10) -> list[dict]
     t_e2e = ms(lambda r, s: lane2_hash_join(r, s, out_cap), r, s)
     return [
         {"phase": "build(sort+pad)", "ms": t_build},
-        {"phase": "probe_layout(sort+pad)", "ms": t_layout},
+        {"phase": "probe_layout", "ms": t_layout},
         {"phase": "walk_emit(kernel)", "ms": t_kernel},
         {"phase": "tail+glue", "ms": t_pe - t_layout - t_kernel},
         {"phase": "end_to_end", "ms": t_e2e},

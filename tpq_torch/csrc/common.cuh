@@ -1,14 +1,33 @@
-// Shared pieces of the port's CUDA kernels: the by-value column list
-// that PAD and PACK take, the grid-wide zero-fill of PACK and the
-// aggregate's run-end pass, a block-wide exclusive scan, and the
-// decoupled look-back of PACK and the fused walk/emit (the run-end pass
-// keeps its state in the same layout, in a buffer of its own).
+// Shared pieces of the port's CUDA kernels: the engine's key hash (the
+// hash kernel's and the probe layout's), the by-value column list that
+// PAD and PACK take, the grid-wide zero-fill of PACK and the aggregate's
+// run-end pass, a block-wide exclusive scan, and the decoupled look-back
+// of PACK and the fused walk/emit (the run-end pass keeps its state in
+// the same layout, in a buffer of its own).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define TPQ_MAX_COLS 16
+
+// tpq_torch.hashing.hash_keys of one key (csrc/hash.cu says what it
+// computes), as the int32 h >> shift, shift = 32 - bits.
+constexpr uint32_t kPhiA = 0x9E3779B9u;
+constexpr uint32_t kPhiB = 0x85EBCA6Bu;
+constexpr uint32_t kPhiC = 0xC2B2AE35u;
+
+static __device__ __forceinline__ int32_t hash_one(long long key, uint32_t salt, int shift) {
+  const uint64_t k = static_cast<uint64_t>(key);
+  uint32_t h = (uint32_t(k) ^ salt) * kPhiA;
+  h ^= uint32_t(k >> 32) * kPhiB;
+  h ^= h >> 16;
+  h *= kPhiB;
+  h ^= h >> 13;
+  h *= kPhiC;
+  h ^= h >> 16;
+  return static_cast<int32_t>(h >> shift);
+}
 
 // Up to TPQ_MAX_COLS columns, each of 4- or 8-byte elements, passed by
 // value so that one launch moves every column.

@@ -19,28 +19,13 @@
 // head is); the keys before that boundary (at most 1) and the ragged
 // tail (at most 3) are hashed one by one. A call whose keys are not
 // 8-byte aligned, or whose `out + head` is not 16-byte aligned, is refused.
+// hash_one is csrc/common.cuh's, shared with the probe layout (layout.cu).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr uint32_t kPhiA = 0x9E3779B9u;
-constexpr uint32_t kPhiB = 0x85EBCA6Bu;
-constexpr uint32_t kPhiC = 0xC2B2AE35u;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int32_t hash_one(long long key, uint32_t salt, int shift) {
-  const uint64_t k = static_cast<uint64_t>(key);
-  uint32_t h = (uint32_t(k) ^ salt) * kPhiA;
-  h ^= uint32_t(k >> 32) * kPhiB;
-  h ^= h >> 16;
-  h *= kPhiB;
-  h ^= h >> 13;
-  h *= kPhiC;
-  h ^= h >> 16;
-  return static_cast<int32_t>(h >> shift);
-}
 
 // Keys [head, head + 4 * ngroups) in groups of 4, the others one by one.
 __global__ void __launch_bounds__(kThreads)

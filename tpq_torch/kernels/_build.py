@@ -43,6 +43,8 @@ _SIGNATURES = {
     "tpq_split_digit": [P, P, I32, P, P, P, I32, I32, I64, P, I64, P],
     "tpq_radix_histogram": [P, I64, I32, P, P, I64, P],
     "tpq_hash_keys": [P, I64, I32, U32, P, P],
+    "tpq_probe_layout": [P, P, I32, P, P, I32, I64, I32, I64, U32, P, P, P, P, P, P, I64,
+                         P],
     "tpq_copy": [P, P, I64, P],
     "tpq_stamp": [P, P],
     "tpq_aggregate_runs": [P, I32, P, P, I32, P, I32, I64, P, P, P, P, I64, P, P],

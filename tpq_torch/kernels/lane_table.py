@@ -11,10 +11,14 @@ The layout is tpq's, so that the same inputs give the same tables:
     contiguous in d. Two distinct keys that collide on (bucket, h2) clear
     `ok` and the join falls back. Rows are ranked within their bucket and
     PADded lane-major, then transposed to [npart, D, 128].
-  * probe layout: queries grouped by partition with one stable sort and
-    PADded to [npart, probe_cap]; the identity when npart == 1 and
-    probe_cap equals the probe capacity (the skew join's broadcast
-    tables).
+  * probe layout: queries grouped by partition and PADded to [npart,
+    probe_cap]; the identity when npart == 1 and probe_cap equals the
+    probe capacity (the skew join's broadcast tables). On the card a
+    plan of at most LAYOUT_MAX_PARTS partitions takes `probe_layout`
+    (tpq_torch/csrc/layout.cu: a stable count, scan and scatter, the
+    scan also filling the dead slots); a larger one (config 5's
+    shards), the identity and a CPU tensor take `probe_layout_ref`,
+    tpq's stable sort and PAD.
   * walk only (probe_lane_tables, the membership probe of the skew
     join): count, first match depth and the first K matches' build
     payloads of every padded query, by `probe_walk`
@@ -64,6 +68,12 @@ MAX_CHUNK = 4096  # padded queries per work item of the walk/emit (kMaxChunk in 
 CTA_OVERHEAD_QUERIES = 1024
 SALT_LANE = 0x1A9E0001
 SALT_H2 = 0x1A9E0002
+LAYOUT_TILE = 4096  # kTile in csrc/layout.cu (the kernel checks the scratch size)
+# kMaxParts in csrc/layout.cu: the layout kernel's per-tile bins take 24
+# bytes a partition of a block's shared memory beside its 32 KB stage;
+# plan_lane2 gives 512 partitions at a build side of 2^20 rows (configs
+# 1, 3 and 4), 16,384 at config 5's shards, which keep the sort path
+LAYOUT_MAX_PARTS = 1024
 
 
 @dataclass(frozen=True)
@@ -176,11 +186,12 @@ def plan_pressure(r: Table, s: Table, plan: LanePlan, key: str = "key"):
     return load, (cnt - plan.inline_k).clamp_min(0).sum()
 
 
-@span("tpq.lane.layout")
-def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
-    """Group the queries by partition (one stable sort) and PAD them to
-    the [npart * probe_cap] layout. `keep` (bool[capacity], optional) is
-    a pushed-down filter: dropped rows go to the dead partition like
+def probe_layout_ref(plan: LanePlan, s: Table, key: str, keep=None):
+    """Plain torch probe layout: defines the contract the kernel is held
+    to, and is the sort path of plans past LAYOUT_MAX_PARTS. Groups the
+    queries by partition (one stable sort) and PADs them to the
+    [npart * probe_cap] layout. `keep` (bool[capacity], optional) is a
+    pushed-down filter: dropped rows go to the dead partition like
     padding.
 
     Returns (qk_p int64[u], spay_p [int64[u]], lane_p int32[u],
@@ -212,6 +223,78 @@ def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
     # kernels mask with qocc)
     lane_p = (hash_keys(qk_p, plan.pbits + 7, SALT_LANE) & (L - 1)).to(I32)
     return qk_p, padded[1:], lane_p, qocc, overflow
+
+
+def probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
+    """The probe layout as one stable partition on the card
+    (csrc/layout.cu: count, scan with the dead slots' fill, scatter); see
+    probe_layout_ref for the contract, byte for byte over all u slots.
+    Takes plans of at most LAYOUT_MAX_PARTS partitions and no identity
+    layout. Calls counted in `.launches` (a call launches each of the
+    three kernels once)."""
+    dev = s.col(key).device
+    if dev.type == "cpu":
+        return probe_layout_ref(plan, s, key, keep)
+    if dev.type != "cuda":
+        raise RuntimeError(f"probe_layout: no kernel for device {dev}")
+    npart, probe_cap = plan.npart, plan.probe_cap
+    u = npart * probe_cap
+    if _sort_path_shape(plan, s):
+        raise ValueError(f"probe_layout: {npart} partitions of {probe_cap} over "
+                         f"{s.capacity} rows take probe_layout_ref")
+    sk = _as_i64(s.col(key)).contiguous()
+    spays = [_as_i64(s.col(n)).contiguous() for n in s.names if n != key]
+    if len(spays) > MAX_COLS:
+        raise ValueError(f"probe_layout: at most {MAX_COLS} payload columns")
+    if u >= 2**31 or s.capacity >= 2**31:
+        raise ValueError("probe_layout: int32 slots and rows need u, capacity < 2^31")
+    if sk.data_ptr() % 16:  # the count reads the keys in 16-byte loads
+        sk = sk.clone()
+    if keep is not None:
+        if keep.dtype != torch.bool or tuple(keep.shape) != (s.capacity,) \
+                or keep.device != dev:
+            raise ValueError(f"probe_layout: keep must be bool[{s.capacity}] on {dev}")
+        keep = keep.contiguous()
+    num_rows = s.num_rows
+    qk_p = torch.empty(u, dtype=I64, device=dev)
+    spay_p = [torch.empty(u, dtype=I64, device=dev) for _ in spays]
+    lane_p = torch.empty(u, dtype=I32, device=dev)
+    qocc = torch.empty(u, dtype=I32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    ntiles = max(1, -(-s.capacity // LAYOUT_TILE))
+    scratch = torch.empty((ntiles + 1) * npart, dtype=I32, device=dev)
+    with _build.on_device(sk):
+        code = _build.lib().tpq_probe_layout(
+            sk.data_ptr(), _build.ptr_array(spays), len(spays),
+            keep.data_ptr() if keep is not None else None, num_rows.data_ptr(),
+            num_rows.element_size(), s.capacity, plan.pbits, probe_cap, SALT_LANE,
+            qk_p.data_ptr(), _build.ptr_array(spay_p), lane_p.data_ptr(),
+            qocc.data_ptr(), overflow.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            _build.stream_of(sk))
+    _build.check(code, "probe_layout")
+    probe_layout.launches += 1
+    return qk_p, spay_p, lane_p, qocc, overflow
+
+
+probe_layout.launches = 0
+
+
+def _sort_path_shape(plan: LanePlan, s: Table) -> bool:
+    """The shapes the layout kernel does not take: the identity layout
+    and plans past LAYOUT_MAX_PARTS partitions."""
+    return (plan.npart > LAYOUT_MAX_PARTS
+            or (plan.npart == 1 and plan.probe_cap == s.capacity))
+
+
+@span("tpq.lane.layout")
+def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
+    """The probe layout of the lane joins: the kernel on the card
+    (probe_layout), by shape the plain sort path (probe_layout_ref):
+    on a CPU tensor, for the identity layout, and for plans past
+    LAYOUT_MAX_PARTS partitions. Returns probe_layout_ref's tuple."""
+    if s.col(key).device.type == "cuda" and not _sort_path_shape(plan, s):
+        return probe_layout(plan, s, key, keep)
+    return probe_layout_ref(plan, s, key, keep)
 
 
 # ---------------------------------------------------------------------------
