@@ -393,15 +393,17 @@ LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs", "gro
 
 def call_size(name, args) -> int:
     """What picks a join's largest call: PAD's and PACK's output slots
-    times row width (kernel_ab.size), the walk/emit's padded queries, the
-    hash's keys, the aggregate's rows, the layout's padded slots."""
-    from tpq_torch.bench.kernel_ab import size
-
+    times row width, the walk/emit's padded queries, the hash's keys, the
+    aggregate's rows, the layout's padded slots, the histogram's ids."""
     if name in ("hash_keys", "aggregate_runs", "group_insert"):
         return args[0].numel()
     if name == "probe_layout":
         return args[0].npart * args[0].probe_cap
-    return args[1].shape[0] if name == "fused_walk_emit" else size(name, args)
+    if name == "pad":
+        return args[3] * sum(c.element_size() for c in args[0])
+    if name == "pack":
+        return args[1].shape[0] * sum(c.element_size() for c in args[0])
+    return args[1].shape[0] if name == "fused_walk_emit" else args[0].shape[0]
 
 
 def hold_kernel_calls(run, keep=LARGEST):
@@ -1418,7 +1420,7 @@ def jit_phase(dev, cfg1, cfg3, smoke_cfg, cfg4):
     out["config4"]["busy_gap_ms"] = gaps
     phase("jit", "config 4 (pipeline_100m): jitted busy over the mean eager busy, each "
                  "jitted turn: " + ", ".join(f"{g:.4f} ms" for g in gaps)
-          + " (the sorts' device copies run as memcpy nodes: diagnose sort)")
+          + " (the sorts' device copies run as memcpy nodes)")
     jitted.clear()
     del r, s, call, jitted
     torch.cuda.empty_cache()

@@ -13,7 +13,7 @@ import torch
 import torch_aggregate_cases as cases
 
 from tpq_torch.columnar import Table, next_pow2
-from tpq_torch.kernels import aggregate, group_table, move
+from tpq_torch.kernels import _build, aggregate, group_table, move, radix_partition
 from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
 from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
                                            group_write_ref)
@@ -59,6 +59,17 @@ def test_aggregate_runs_takes_a_host_count_and_raises_off_cpu_and_cuda():
         aggregate_runs(k.to("meta"), [], num_rows)
 
 
+def _run_buffer(nvals, n, stream=-1):
+    return _build.stream_state(aggregate.state_owner(nvals), torch.device("cpu"), stream,
+                               aggregate.state_words(n, nvals) + move.STATE_HEADER,
+                               torch.int64)
+
+
+def _pack_buffer(items, stream=-1):
+    return _build.stream_state(move.PACK_OWNER, torch.device("cpu"), stream,
+                               items + move.STATE_HEADER, torch.int64)
+
+
 def test_aggregate_state_is_its_own_per_width():
     """The run-end pass's look-back state is a buffer apart from PACK's
     and the walk/emit's on the same device and stream, one a value-column
@@ -66,23 +77,43 @@ def test_aggregate_state_is_its_own_per_width():
     never lie where another launch reads a status word. Each is made
     zero, kept across calls and replaced by a larger zeroed one when a
     call needs more room."""
-    cpu, s = torch.device("cpu"), -1
-    keys = [(None, s)] + [(None, s, nv) for nv in (1, 3)]
-    for k in keys:
-        (move._PACK_STATE if len(k) == 2 else aggregate._AGG_STATE).pop(k, None)
+    cpu = torch.device("cpu")
+    _build.take_stream_state(cpu, -1)
     try:
-        packs = move._pack_state(cpu, s, 10)
-        one, three = aggregate._agg_state(cpu, s, 1, 5000), aggregate._agg_state(cpu, s, 3, 5000)
+        packs = _pack_buffer(10)
+        one, three = _run_buffer(1, 5000), _run_buffer(3, 5000)
         assert len({packs.data_ptr(), one.data_ptr(), three.data_ptr()}) == 3
-        assert aggregate._agg_state(cpu, s, 3, 5000) is three and not three.any()
+        assert _run_buffer(3, 5000) is three and not three.any()
         assert three.numel() >= aggregate.state_words(5000, 3) + move.STATE_HEADER
-        big = aggregate._agg_state(cpu, s, 3, 1 << 22)
+        big = _run_buffer(3, 1 << 22)
         assert big is not three and not big.any()
         assert big.numel() >= aggregate.state_words(1 << 22, 3) + move.STATE_HEADER
-        assert move._pack_state(cpu, s, 10) is packs
+        assert _pack_buffer(10) is packs
     finally:
-        for k in keys:
-            (move._PACK_STATE if len(k) == 2 else aggregate._AGG_STATE).pop(k, None)
+        _build.take_stream_state(cpu, -1)
+
+
+def test_take_stream_state_takes_every_owner_of_one_stream():
+    """A graph captured on a stream takes every kernel's buffer of that
+    stream: PACK's (shared with the walk/emit), the run-end pass's of
+    each width and the histogram's int32 accumulator all come back, and
+    leave the registry, while another stream's stay."""
+    cpu = torch.device("cpu")
+    for s in (-1, -2):
+        _build.take_stream_state(cpu, s)
+    try:
+        mine = [_pack_buffer(10), _run_buffer(1, 5000), _run_buffer(3, 5000),
+                _build.stream_state(radix_partition.HIST_OWNER, cpu, -1, 65, torch.int32)]
+        assert mine[-1].dtype == torch.int32 and not mine[-1].any()
+        other = _pack_buffer(10, stream=-2)
+        taken = _build.take_stream_state(cpu, -1)
+        assert sorted(map(id, taken)) == sorted(map(id, mine))
+        assert _build.take_stream_state(cpu, -1) == []
+        assert _pack_buffer(10) is not mine[0]  # a new one, zeroed
+        assert _pack_buffer(10, stream=-2) is other
+    finally:
+        for s in (-1, -2):
+            _build.take_stream_state(cpu, s)
 
 
 def _table(key, values, num_rows) -> Table:

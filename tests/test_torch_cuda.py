@@ -27,7 +27,7 @@ from tpq_torch.jit import deferred, jit
 from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
                                      fused_walk_emit_ref, lane2_probe_emit, plan_lane2)
-from tpq_torch.kernels import aggregate, group_table, lane_table, move
+from tpq_torch.kernels import _build, aggregate, group_table, lane_table, move
 from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
                                            group_write_ref)
 from tpq_torch.kernels.lane_table import (LAYOUT_MAX_PARTS, SALT_H2, SALT_LANE, LanePlan,
@@ -730,7 +730,8 @@ def test_jitted_hash_aggregate_replays_same_bytes(dev):
     buffers, the whole capacity): the body makes no host read under the
     capture flag, two replays give the same bytes, the zeros past the
     groups included, and equal the eager call's; both take the group
-    table (`tpq.aggregate.ok`), so the graph holds no run-end state."""
+    table (`tpq.aggregate.ok`), so the graph holds no kernel's per-stream
+    state (no run-end pass, no PACK)."""
     from tpq_torch.ops.hash_aggregate import hash_aggregate
 
     t = Table.from_numpy(datagen.gen_relation_np(300_000, 20_000, payloads=2, seed=9),
@@ -748,7 +749,7 @@ def test_jitted_hash_aggregate_replays_same_bytes(dev):
         _eq(second.columns[k], v)
     assert len(jitted._graphs) == 1 and jitted.reruns == 0
     assert jitted.stats()["conds"]["tpq.aggregate.ok"] == {"then": 2, "else": 0}
-    assert next(iter(jitted._graphs.values())).run_states == []
+    assert next(iter(jitted._graphs.values())).states == []
 
 
 @pytest.mark.parametrize("name", agg_cases.CASES)
@@ -873,8 +874,8 @@ def test_jitted_aggregate_fallback_byte_equal(dev, monkeypatch):
             _eq(got.columns[name], want.columns[name])
     assert jitted.reruns == 1 and jitted.captures == 2
     assert jitted.stats()["conds"]["tpq.aggregate.ok"] == {"then": 0, "else": 3}
-    held = [s for g in jitted._graphs.values() if g.path == (False,) for s in g.run_states]
-    kept = [*aggregate._AGG_STATE.values(), *move._PACK_STATE.values()]
+    held = [s for g in jitted._graphs.values() if g.path == (False,) for s in g.states]
+    kept = list(_build._stream_states.values())
     assert held and not any(h is k for h in held for k in kept)
 
 
@@ -1177,12 +1178,24 @@ def test_graph_of_pack_and_walk_emit_replays_exact(dev):
             for a, b in zip(outs, want_outs):
                 _eq(a[:m], b[:m])
         (graph,) = jitted._graphs.values()
-        epochs.append((int(graph.state[0]) >> 32) & 0xFFFFFFFF)
+        (state,) = graph.states  # PACK's and the walk/emit's, one owner
+        epochs.append((int(state[0]) >> 32) & 0xFFFFFFFF)
     # the second inputs lie elsewhere: the graph is captured again (its
     # warm-up and its new state start the epochs anew), and from then on
     # the inputs are copied into its own buffers
     assert epochs == [8, 8, 12, 16]
     assert len(jitted._graphs) == 1 and jitted.reruns == 0 and jitted.captures == 2
+
+
+def _card(dev) -> torch.device:
+    """dev with its index, as a kernel's tensors carry it."""
+    return torch.device("cuda", torch.device(dev).index or 0)
+
+
+def _state_of(owner, card: torch.device, stream) -> torch.Tensor:
+    """The int64 buffer `owner`'s kernels keep for `stream` (the one their
+    launches made: asking for 0 words replaces none)."""
+    return _build.stream_state(owner, card, stream.cuda_stream, 0, torch.int64)
 
 
 @pytest.mark.parametrize("kernel", ["pack", "walk_emit"])
@@ -1213,8 +1226,8 @@ def test_look_back_epoch_advances_on_the_card_and_wraps(dev, kernel):
                 _eq(a[:n], b[:n])
 
     stream = torch.cuda.Stream(dev)
-    key = (torch.device(dev).index or 0, stream.cuda_stream)
-    move._PACK_STATE.pop(key, None)
+    card = _card(dev)
+    _build.take_stream_state(card, stream.cuda_stream)
 
     def epoch(state):  # state[0] is the last epoch << 32 | the tickets drawn
         return (int(state[0]) >> 32) & 0xFFFFFFFF
@@ -1224,9 +1237,9 @@ def test_look_back_epoch_advances_on_the_card_and_wraps(dev, kernel):
             epochs = []
             for _ in range(2):
                 check(call())
-                epochs.append(epoch(move._PACK_STATE[key]))
+                epochs.append(epoch(_state_of(move.PACK_OWNER, card, stream)))
             assert epochs == [1, 2]
-            state = move._PACK_STATE[key]
+            state = _state_of(move.PACK_OWNER, card, stream)
             state[0] = ((2**32 - 2) << 32) - 2**64  # last epoch 2^32 - 2, as int64
             state[move.STATE_HEADER:] = (1 << 32) | (1 << 31) | 777
             check(call())  # epoch 2^32 - 1
@@ -1236,7 +1249,7 @@ def test_look_back_epoch_advances_on_the_card_and_wraps(dev, kernel):
             assert int(state[0]) == 1 << 32
         torch.cuda.synchronize(dev)
     finally:
-        move._PACK_STATE.pop(key, None)
+        _build.take_stream_state(card, stream.cuda_stream)
 
 
 def test_aggregate_state_leaves_pack_and_walk_emit_statuses(dev):
@@ -1253,10 +1266,8 @@ def test_aggregate_state_leaves_pack_and_walk_emit_statuses(dev):
     wwant = fused_walk_emit_ref(*wargs)
     nw = min(int(wwant[1].clamp_max(plan.inline_k).sum()), wargs[-1])
     stream = torch.cuda.Stream(dev)
-    idx = torch.device(dev).index or 0
-    pkey, akey = (idx, stream.cuda_stream), (idx, stream.cuda_stream, 1)
-    move._PACK_STATE.pop(pkey, None)
-    aggregate._AGG_STATE.pop(akey, None)
+    card = _card(dev)
+    _build.take_stream_state(card, stream.cuda_stream)
 
     def check_pack():
         outs, total = pack(*pargs)
@@ -1267,7 +1278,7 @@ def test_aggregate_state_leaves_pack_and_walk_emit_statuses(dev):
     try:
         with torch.cuda.stream(stream):
             check_pack()
-            pstate = move._PACK_STATE[pkey]
+            pstate = _state_of(move.PACK_OWNER, card, stream)
             nxt = ((int(pstate[0]) >> 32) & 0xFFFFFFFF) + 1
             n = 8 * aggregate.AGG_TILE  # one run over 8 tiles
             key = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -1276,7 +1287,8 @@ def test_aggregate_state_leaves_pack_and_walk_emit_statuses(dev):
             got = aggregate_runs(key, [vals], torch.tensor(n, device=dev))
             _agg_eq(got, aggregate_runs_ref(key, [vals], torch.tensor(n, device=dev)))
             assert int(got[0][2][0]) == (8 * nxt) << 32
-            assert aggregate._AGG_STATE[akey].data_ptr() != pstate.data_ptr()
+            astate = _state_of(aggregate.state_owner(1), card, stream)
+            assert astate.data_ptr() != pstate.data_ptr()
             last = (int(pstate[0]) >> 32) & 0xFFFFFFFF
             assert last == nxt - 1
             assert bool((((pstate[move.STATE_HEADER:] >> 32) & 0xFFFFFFFF) <= last).all())
@@ -1288,8 +1300,7 @@ def test_aggregate_state_leaves_pack_and_walk_emit_statuses(dev):
                 _eq(a[:nw], b[:nw])
         torch.cuda.synchronize(dev)
     finally:
-        move._PACK_STATE.pop(pkey, None)
-        aggregate._AGG_STATE.pop(akey, None)
+        _build.take_stream_state(card, stream.cuda_stream)
 
 
 # ---------------------------------------------------------------------------

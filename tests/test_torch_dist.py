@@ -40,6 +40,7 @@ from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, partition_padded,
 from tpq_torch.kernels.radix_sort import msd_partition
 
 from conftest import assert_tables_equal
+import torch_oracle  # noqa: F401  (builds the oracle before any test runs)
 
 torch.set_num_threads(2)
 

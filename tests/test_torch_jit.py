@@ -27,6 +27,7 @@ from tpq_torch.ops import hash_join, merge_join
 from tpq_torch.query import full_pipeline, jit_pipeline
 
 from conftest import assert_tables_equal
+import torch_oracle  # noqa: F401  (builds the oracle before any test runs)
 
 torch.set_num_threads(2)
 

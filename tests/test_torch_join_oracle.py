@@ -23,6 +23,7 @@ from tpq_torch.ops.filter import compact
 from tpq_torch.ops.union_join import union_join, union_sort_specs
 
 from conftest import assert_tables_equal
+import torch_oracle  # noqa: F401  (builds the oracle before any test runs)
 
 torch.set_num_threads(2)
 

@@ -11,7 +11,7 @@ import torch
 from tpq.kernels.move import pack as jpack
 from tpq.kernels.move import pad as jpad
 import torch_move_cases as cases
-from tpq_torch.kernels import move
+from tpq_torch.kernels import _build, move
 from tpq_torch.kernels.move import pack, pad
 
 torch.set_num_threads(2)
@@ -180,20 +180,26 @@ def test_pack_contract_cases(name):
 
 def test_pack_state_takes_a_new_epoch_per_call():
     """PACK's and the walk/emit's look-back state is kept per device and
-    stream: every call gets the same buffer, made zero, whose epoch word
-    each launch advances on the card (tests/test_torch_cuda.py reads it
-    after each launch and across the wrap), so the wrapper hands no epoch
-    of its own; a larger call gets a new zeroed buffer."""
-    cpu, key = torch.device("cpu"), (None, -1)
-    move._PACK_STATE.pop(key, None)
+    stream (_build.stream_state, owner move.PACK_OWNER): every call gets
+    the same buffer, made zero, whose epoch word each launch advances on
+    the card (tests/test_torch_cuda.py reads it after each launch and
+    across the wrap), so the wrapper hands no epoch of its own; a larger
+    call gets a new zeroed buffer."""
+    cpu = torch.device("cpu")
+
+    def state(items):
+        return _build.stream_state(move.PACK_OWNER, cpu, -1, items + move.STATE_HEADER,
+                                   torch.int64)
+
+    _build.take_stream_state(cpu, -1)
     try:
-        s1 = move._pack_state(cpu, -1, 10)
-        s2 = move._pack_state(cpu, -1, 10)
+        s1 = state(10)
+        s2 = state(10)
         assert s1 is s2 and s1.dtype == torch.int64 and not s1.any()
         assert s1.numel() >= 10 + move.STATE_HEADER
-        s3 = move._pack_state(cpu, -1, s1.numel())
+        s3 = state(s1.numel())
         assert s3 is not s1 and not s3.any()
         assert s3.numel() >= s1.numel() + move.STATE_HEADER
-        assert move._pack_state(cpu, -1, 10) is s3
+        assert state(10) is s3
     finally:
-        move._PACK_STATE.pop(key, None)
+        _build.take_stream_state(cpu, -1)

@@ -26,6 +26,7 @@ from tpq_torch.ops.renegotiate import run_renegotiated
 from tpq_torch.query import entry, full_pipeline, jit_pipeline
 
 from conftest import assert_tables_equal
+import torch_oracle  # noqa: F401  (builds the oracle before any test runs)
 
 torch.set_num_threads(2)
 

@@ -24,6 +24,7 @@ from tpq_torch.ops import merge_join
 from tpq_torch.ops.merge_join import sort_table_by_key
 
 from conftest import assert_tables_equal
+import torch_oracle  # noqa: F401  (builds the oracle before any test runs)
 
 torch.set_num_threads(2)
 

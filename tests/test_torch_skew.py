@@ -34,6 +34,7 @@ from tpq_torch.ops.skew_join import (nominate_heavy_keys, skew_hash_join,
 from tpq_torch.ops.union_join import union_join
 
 from conftest import assert_tables_equal
+import torch_oracle  # noqa: F401  (builds the oracle before any test runs)
 from torch_host_reads import host_reads
 
 torch.set_num_threads(2)

@@ -52,8 +52,8 @@
 //     zeroes its share of [G, n) in 16-byte stores.
 // The state buffer (epoch and ticket word, wrap count, then the tiles'
 // records) has the layout of PACK's (common.cuh) but is a buffer of its
-// own, kept per device, stream and value-column count by
-// tpq_torch/kernels/aggregate.py `_agg_state`: a record's payloads may
+// own, kept per device, stream and value-column count (owner
+// tpq_torch/kernels/aggregate.py `state_owner`): a record's payloads may
 // hold any 64 bits, so no launch that reads a word as a status may share
 // it, and a record's flag word sits at the same place in every launch.
 //

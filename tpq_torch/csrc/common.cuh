@@ -120,11 +120,11 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t v,
 // as not yet written, so nothing is reset between launches.
 //
 // The state buffer, kept per device and stream by the wrappers
-// (tpq_torch/kernels/move.py _pack_state) and zero when it is made; the
-// aggregate's run-end pass keeps one of the same layout, whose records
-// are multi-word with raw payloads, apart from it
-// (tpq_torch/kernels/aggregate.py _agg_state), since the words below
-// past the header must only ever hold statuses:
+// (tpq_torch/kernels/_build.py stream_state, owner move.PACK_OWNER) and
+// zero when it is made; the aggregate's run-end pass keeps one of the
+// same layout, whose records are multi-word with raw payloads, apart
+// from it (owner aggregate.state_owner), since the words below past the
+// header must only ever hold statuses:
 //   state[0]  the epoch of the last launch (0: none yet) << 32 | the
 //             tickets drawn in this one. A block's atomic draw returns
 //             both, so every block learns the launch's epoch (the last

@@ -104,6 +104,7 @@ import torch
 
 from tpq_torch import trace
 from tpq_torch.columnar import Table
+from tpq_torch.kernels import _build
 
 # graphs kept a signature: one a branch path, the least recently used
 # dropped first
@@ -280,20 +281,6 @@ def _placed(device: torch.device) -> torch.device:
     return device
 
 
-def _take_stream_state(device: torch.device, stream: int):
-    """Removes the look-back states the kernels keep for `stream` and
-    returns them: PACK's and the walk/emit's (move._pack_state; None if
-    there is none) and the run-end pass's, one a record width
-    (aggregate._agg_state). A graph keeps the buffers its kernels were
-    captured with, and the next graph captured on a stream of the same
-    handle starts from new ones."""
-    from tpq_torch.kernels import aggregate, move
-
-    runs = [k for k in aggregate._AGG_STATE if k[:2] == (device.index, stream)]
-    return (move._PACK_STATE.pop((device.index, stream), None),
-            [aggregate._AGG_STATE.pop(k) for k in runs])
-
-
 @contextlib.contextmanager
 def _host_reads_raise():
     prev = torch.cuda.get_sync_debug_mode()
@@ -315,8 +302,8 @@ class _Graph:
     graph, its outputs as captured, the flags read after each replay (the
     recorded preds, then the observed values, then, without hand_off,
     each output Table's num_rows, then the spans' stamps), the path it
-    follows, the kernel states it was captured with (PACK's and the
-    walk/emit's in `state`, the run-end pass's in `run_states`), and its
+    follows, the kernels' per-stream buffers it was captured with
+    (`states`, _build.take_stream_state), and its
     top-level spans with their stamps (`marks`; `discarded`: the spans
     whose output a cond of this path throws away)."""
 
@@ -334,7 +321,7 @@ class _Graph:
         # the tensors the body updates in place are copies in the warm-up
         it = iter([x.clone() if i in updated else x for i, x in enumerate(self.inputs)])
         stream = torch.cuda.Stream(device)
-        _take_stream_state(device, stream.cuda_stream)
+        _build.take_stream_state(device, stream.cuda_stream)
         stream.wait_stream(torch.cuda.current_stream(device))
         # warm-up: the kernels build, the work-item caches and this
         # stream's look-back state fill, the path the graph takes runs
@@ -372,7 +359,7 @@ class _Graph:
         self.names, self.observed = run.names, [n for n, _ in run.observed]
         self.discarded = frozenset(i for take, spans in zip(self.path, run.attempts)
                                    if not take and spans is not None for i in spans)
-        self.state, self.run_states = _take_stream_state(device, stream.cuda_stream)
+        self.states = _build.take_stream_state(device, stream.cuda_stream)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.bounds = None  # timing events about a replay, made when first timed
 

@@ -151,3 +151,35 @@ def stream_of(t) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+# (owner, device index, stream) -> the device buffer a kernel keeps across
+# its launches on that stream: the decoupled look-back state of PACK and
+# the walk/emit (one owner), of the run-end pass (one owner a record
+# width), the histogram's accumulator. Made zero; the kernels leave it
+# fit for their next launch. A CUDA graph takes its stream's buffers at
+# capture (take_stream_state), so no two graphs share one.
+_stream_states: dict = {}
+STATE_MIN_WORDS = 1024
+
+
+def stream_state(owner, device, stream: int, words: int, dtype):
+    """The buffer of `owner` for `stream` on `device`, with at least
+    `words` elements: reused while it fits, else replaced by a zeroed one
+    of max(words, twice the old, STATE_MIN_WORDS)."""
+    import torch
+
+    key = (owner, device.index, stream)
+    st = _stream_states.get(key)
+    if st is None or st.numel() < words:
+        size = max(words, 2 * st.numel() if st is not None else 0, STATE_MIN_WORDS)
+        st = _stream_states[key] = torch.zeros(size, dtype=dtype, device=device)
+    return st
+
+
+def take_stream_state(device, stream: int) -> list:
+    """Removes every owner's buffer of `stream` on `device` and returns
+    them: a graph keeps the ones it was captured with, and the next user
+    of a stream of the same handle starts from new ones."""
+    keys = [k for k in _stream_states if k[1:] == (device.index, stream)]
+    return [_stream_states.pop(k) for k in keys]

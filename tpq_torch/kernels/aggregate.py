@@ -17,7 +17,7 @@ on a CUDA tensor the wrapper launches one kernel for it
 (tpq_torch/csrc/aggregate.cu), up to MAX_VALUES value columns a launch,
 and counts its launches in `.launches`. On a CPU tensor it runs the
 plain version, `aggregate_runs_ref`; on any other device it raises.
-Its look-back state is a buffer of its own (`_agg_state`), apart from
+Its look-back state is a buffer of its own (`state_owner`), apart from
 PACK's and the walk/emit's.
 """
 
@@ -40,27 +40,17 @@ def state_words(n: int, nvals: int) -> int:
     return -(-n // AGG_TILE) * (1 + 2 * (nvals + 1))
 
 
-# (device index, stream, value columns) -> int64 words: the run-end
-# pass's look-back state, laid out as PACK's (csrc/common.cuh: epoch and
-# ticket word, wrap count, then the records) and kept across calls the
-# same way, but a buffer of its own for each record width. PACK and the
-# walk/emit read every word past the header as a status, and a record's
-# payloads (open-run counts and sums) may hold any 64 bits, so they must
-# never lie where another launch looks for a flag word: not PACK's, not
-# the walk/emit's, and not a run-end launch's of another width.
-_AGG_STATE: dict = {}
-
-
-def _agg_state(device: torch.device, stream: int, nvals: int, n: int) -> torch.Tensor:
-    """The run-end state of `stream` on `device` for `nvals` value
-    columns, with room for `n` rows; a larger call gets a new zeroed one."""
-    key = (device.index, stream, nvals)
-    words = state_words(n, nvals) + STATE_HEADER
-    st = _AGG_STATE.get(key)
-    if st is None or st.numel() < words:
-        size = max(words, 2 * st.numel() if st is not None else 1024)
-        st = _AGG_STATE[key] = torch.zeros(size, dtype=I64, device=device)
-    return st
+def state_owner(nvals: int):
+    """The stream-state owner (_build.stream_state) of the run-end pass at
+    `nvals` value columns. Its int64 words are laid out as PACK's
+    (csrc/common.cuh: epoch and ticket word, wrap count, then the
+    records) and kept across calls the same way, but in a buffer of their
+    own for each record width: PACK and the walk/emit read every word past
+    the header as a status, and a record's payloads (open-run counts and
+    sums) may hold any 64 bits, so they must never lie where another
+    launch looks for a flag word: not PACK's, not the walk/emit's, and
+    not a run-end launch's of another width."""
+    return ("aggregate", nvals)
 
 
 def aggregate_runs_ref(key: torch.Tensor, values, num_rows, pack=pack_ref):
@@ -132,7 +122,8 @@ def aggregate_runs(key: torch.Tensor, values, num_rows):
     # same key', count and G
     for lo in range(0, max(1, len(values)), MAX_VALUES):
         vals, outs = values[lo:lo + MAX_VALUES], sums[lo:lo + MAX_VALUES]
-        state = _agg_state(dev, stream, len(vals), n)
+        state = _build.stream_state(state_owner(len(vals)), dev, stream,
+                                    state_words(n, len(vals)) + STATE_HEADER, I64)
         with _build.on_device(key):
             code = lib.tpq_aggregate_runs(
                 key.data_ptr(), key.element_size(), _build.ptr_array(vals),

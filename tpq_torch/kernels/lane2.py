@@ -11,7 +11,7 @@ operator.
 `fused_walk_emit` runs tpq_torch/csrc/lane2.cu (one launch) on CUDA
 tensors and `fused_walk_emit_ref`, its plain torch version, on CPU
 tensors. Its look-back statuses share PACK's buffer, kept per device and
-stream (move._pack_state; each launch takes a new epoch from it). The
+stream (move.PACK_OWNER; each launch takes a new epoch from it). The
 kernel emits rows in (padded query, j) order where tpq's emits
 (4096-query tile, j, position); the oracle contract compares rows after
 canonical ordering, and the plain version fixes the port's order
@@ -30,7 +30,7 @@ from tpq_torch.kernels.lane_table import (L, MAX_K, SMEM_LIMIT, LanePlan,
                                           LaneTables, _probe_emit_common,
                                           _probe_layout, build_lane_tables, walk_ref,
                                           work_item_queries)
-from tpq_torch.kernels.move import MAX_COLS, _pack_state
+from tpq_torch.kernels.move import MAX_COLS, PACK_OWNER, STATE_HEADER
 from tpq_torch.trace import marker, span
 
 I32 = torch.int32
@@ -151,7 +151,7 @@ def fused_walk_emit(tables: LaneTables, qk, lane, qocc, spays,
     total_inline = torch.empty((), dtype=I32, device=dev)
     stream = _build.stream_of(qk)
     nwork = npart * -(-probe_cap // chunk)
-    state = _pack_state(dev, stream, nwork)
+    state = _build.stream_state(PACK_OWNER, dev, stream, nwork + STATE_HEADER, I64)
     with _build.on_device(qk):
         code = lib.tpq_walk_emit(
             t_key.data_ptr(), _build.ptr_array(t_pays), len(t_pays),

@@ -124,24 +124,13 @@ def pack_ref(planes, occ: torch.Tensor):
     return outs, total
 
 
-# (device index, stream) -> int64 words: the look-back state of PACK and
-# the fused walk/emit (epoch and ticket counter, wrap count, then the
-# work items' statuses; csrc/common.cuh), kept across calls. Each launch
-# takes the next epoch from the buffer itself, so the words of earlier
-# calls read as not yet written, nothing is reset between calls, and a
-# CUDA graph that replays a launch takes a new epoch at every replay.
-_PACK_STATE: dict = {}
-
-
-def _pack_state(device: torch.device, stream: int, items: int) -> torch.Tensor:
-    """The state buffer of `stream` on `device`, with room for `items`
-    work items; a larger call gets a new zeroed one."""
-    key = (device.index, stream)
-    st = _PACK_STATE.get(key)
-    if st is None or st.numel() < items + STATE_HEADER:
-        size = max(items + STATE_HEADER, 2 * st.numel() if st is not None else 1024)
-        st = _PACK_STATE[key] = torch.zeros(size, dtype=torch.int64, device=device)
-    return st
+# The stream-state owner (_build.stream_state) of PACK's and the fused
+# walk/emit's look-back state: int64 words, epoch and ticket counter,
+# wrap count, then the work items' statuses (csrc/common.cuh). Each
+# launch takes the next epoch from the buffer itself, so the words of
+# earlier calls read as not yet written, nothing is reset between calls,
+# and a CUDA graph that replays a launch takes a new epoch at every replay.
+PACK_OWNER = "pack"
 
 
 def pack(planes, occ: torch.Tensor):
@@ -158,7 +147,8 @@ def pack(planes, occ: torch.Tensor):
         occ = occ.to(I32, memory_format=torch.contiguous_format, copy=True)
     lib = _build.lib()
     stream = _build.stream_of(occ)
-    state = _pack_state(occ.device, stream, -(-n // PACK_TILE))
+    state = _build.stream_state(PACK_OWNER, occ.device, stream,
+                                -(-n // PACK_TILE) + STATE_HEADER, torch.int64)
     outs = [torch.empty_like(p) for p in planes]
     total = torch.empty((), dtype=I32, device=occ.device)
     with _build.on_device(occ):

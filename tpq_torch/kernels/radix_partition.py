@@ -24,17 +24,10 @@ I32 = torch.int32
 I64 = torch.int64
 MAX_BUCKETS = 232448 // 4  # int32 bins in a Hopper block's shared memory
 
-# (device index, stream) -> int32 words: the kernel's ticket and bucket
-# accumulator, zero between calls (the kernel leaves them so)
-_HIST_STATE: dict = {}
-
-
-def _hist_state(device: torch.device, stream: int, words: int) -> torch.Tensor:
-    key = (device.index, stream)
-    st = _HIST_STATE.get(key)
-    if st is None or st.numel() < words:
-        st = _HIST_STATE[key] = torch.zeros(max(words, 64), dtype=I32, device=device)
-    return st
+# The stream-state owner (_build.stream_state) of the kernel's ticket and
+# bucket accumulator: int32 words, zero between calls (the kernel leaves
+# them so)
+HIST_OWNER = "histogram"
 
 
 def radix_histogram_ref(bucket: torch.Tensor, nbuckets: int) -> torch.Tensor:
@@ -67,7 +60,7 @@ def radix_histogram(bucket: torch.Tensor, nbuckets: int) -> torch.Tensor:
     bucket = bucket.contiguous()
     out = torch.empty(nbuckets, dtype=I32, device=bucket.device)
     stream = _build.stream_of(bucket)
-    acc = _hist_state(bucket.device, stream, nbuckets + 1)
+    acc = _build.stream_state(HIST_OWNER, bucket.device, stream, nbuckets + 1, I32)
     with _build.on_device(bucket):
         code = _build.lib().tpq_radix_histogram(
             bucket.data_ptr(), n, nbuckets, out.data_ptr(), acc.data_ptr(), acc.numel(),
