@@ -24,12 +24,16 @@ Phases, one line each; any failure raises and exits non-zero:
                 the u32 key hash at config 1's build keys (bucket ids
                 and h2, both salts), also held to numpy's twin on a
                 sample; the probe layout kernel at config 1's call
-                against its plain version, the sort path, in turns;
+                against its plain version, the sort path, in turns; the
+                lane build kernel the same way at config 1's build and
+                the skew split's heavy mini table (one partition, D 64),
+                and later at config 4's dimension table and config 5's
+                largest shard;
   4. config1  — the 1M x 1M uniform join, hash_join(impl="lane"): one
                 join with every launch count zeroed just before it and
                 read just after (PAD, PACK, the fused walk/emit, the
-                probe layout and the hash launched, nothing else; the
-                hash twice), num_rows
+                probe layout and the lane build launched, nothing else;
+                no hash), num_rows
                 equal to numpy's count and the rows byte-equal to the
                 C++ oracle; then the bench
                 runner: the lane path taken, end-to-end ms, rows/s and
@@ -37,7 +41,8 @@ Phases, one line each; any failure raises and exits non-zero:
                 bench.profile's end to end;
   5. config3  — the 1M x 1M zipf-probe join, hash_join(impl="skew"), the
                 same way: PAD, PACK, the fused walk/emit, the probe
-                kernel, the probe layout and the hash (9 times) launched,
+                kernel, the probe layout, the lane build (3 times) and
+                the hash (3 times) launched,
                 rows byte-equal
                 to the oracle, the split path taken (`join_hash_skew`);
                 its heavy rows against
@@ -88,7 +93,7 @@ Phases, one line each; any failure raises and exits non-zero:
                 2^19, out capacity 2^27): one pipeline with every launch
                 count zeroed just before it and read just after (PAD,
                 PACK once (the lane tail's), the fused walk/emit, the
-                probe layout, the hash (twice) and the aggregate's group
+                probe layout, the lane build and the aggregate's group
                 table pass and
                 write (once each) launched, nothing else), the lane
                 pushdown path taken, every group's key, count and sums
@@ -138,15 +143,15 @@ Phases, one line each; any failure raises and exits non-zero:
                 the first timed); dist_hash_join_planned(local_impl=
                 "lane") with every launch count zeroed just before and
                 read just after (the histogram twice per shard, PAD,
-                PACK, the fused walk/emit and the hash 80 times, nothing
-                else), overflow zero,
+                PACK, the fused walk/emit, the lane build 8 times and the
+                hash 64 times, nothing else), overflow zero,
                 num_rows equal to numpy's count, four key-range slices
                 byte-equal to the oracle; the join once more with every
-                call of those five kernels held, as it is made, byte-equal
+                call of those six kernels held, as it is made, byte-equal
                 to its plain version on the same inputs (the sizes past
                 2^31 that no CPU test reaches); PAD, PACK, the fused
-                walk/emit and the hash timed at their largest call of that
-                join (`config5_largest` in their records); then the
+                walk/emit, the hash and the lane build timed at their
+                largest call of that join (`config5_largest` in their records); then the
                 planned join with its body jitted (jitted_dist_join): the
                 body once under the capture flag with sync debug mode
                 error (no host read), the first jitted call and a replay
@@ -241,7 +246,7 @@ def with_wrappers_replaced(run, replace):
     # the module (tpq_torch.ops exports the function under its name)
     hash_aggregate = importlib.import_module("tpq_torch.ops.hash_aggregate")
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
-               (lane_table, "probe_layout"),
+               (lane_table, "probe_layout"), (lane_table, "lane_build"),
                (scale_bench, "pad"), (hash_aggregate, "aggregate_runs"),
                (hash_aggregate, "group_insert"), (hash_aggregate, "group_write"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
@@ -381,24 +386,53 @@ def layout_err(args, got) -> int:
     return max_abs_err(list(zip([qk, *pays, lane, qocc, ovf], [wqk, *wpays, wlane, wqocc, wovf])))
 
 
+def build_err(args, got) -> int:
+    """The build kernel against its plain version (the sort path) run on
+    plain torch alone, as layout_err runs the layout's: `ok` and blen
+    always, and every slot of the tiles where `ok` is true; where it is
+    false (a bucket past D, whose rows are unspecified, or an h2 hazard)
+    the buckets of fewer than D rows."""
+    from tpq_torch.hashing import hash_keys_ref
+    from tpq_torch.kernels import lane_table
+    from tpq_torch.kernels.move import pad_ref
+
+    saved = lane_table.hash_keys, lane_table.pad
+    lane_table.hash_keys, lane_table.pad = hash_keys_ref, pad_ref
+    try:
+        want = lane_table.build_lane_tables_ref(*args)
+    finally:
+        lane_table.hash_keys, lane_table.pad = saved
+    check(len(got.pays) == len(want.pays), "lane_build: payload columns")
+    pairs = [(got.ok, want.ok), (got.blen, want.blen)]
+    tiles = list(zip([got.key, *got.pays, got.occ], [want.key, *want.pays, want.occ]))
+    if bool(want.ok):
+        return max_abs_err(pairs + tiles)
+    lanes = (want.blen < want.plan.depth).unsqueeze(1).expand_as(want.occ)
+    return max_abs_err(pairs + [(a[lanes], b[lanes]) for a, b in tiles])
+
+
 ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
         "radix_histogram": hist_err, "hash_keys": hash_err, "aggregate_runs": agg_err,
-        "group_insert": insert_err, "group_write": write_err, "probe_layout": layout_err}
+        "group_insert": insert_err, "group_write": write_err, "probe_layout": layout_err,
+        "lane_build": build_err}
 
 
 # kept at their largest call
 LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs", "group_insert",
-           "probe_layout")
+           "probe_layout", "lane_build")
 
 
 def call_size(name, args) -> int:
     """What picks a join's largest call: PAD's and PACK's output slots
     times row width, the walk/emit's padded queries, the hash's keys, the
-    aggregate's rows, the layout's padded slots, the histogram's ids."""
+    aggregate's rows, the layout's padded slots, the build's tile slots,
+    the histogram's ids."""
     if name in ("hash_keys", "aggregate_runs", "group_insert"):
         return args[0].numel()
     if name == "probe_layout":
         return args[0].npart * args[0].probe_cap
+    if name == "lane_build":
+        return args[1].nbuckets * args[1].depth
     if name == "pad":
         return args[3] * sum(c.element_size() for c in args[0])
     if name == "pack":
@@ -408,8 +442,8 @@ def call_size(name, args) -> int:
 
 def hold_kernel_calls(run, keep=LARGEST):
     """Runs `run()` with every call of PAD, PACK, the fused walk/emit, the
-    histogram, the hash, the aggregate's run-end pass, its group table and
-    the probe layout held, as it is made, against the plain version on
+    histogram, the hash, the aggregate's run-end pass, its group table,
+    the probe layout and the lane build held, as it is made, against the plain version on
     the same inputs; the walk/emit is
     also timed on the card alone at every call. The plain version's buffers go back to the card after each
     check, so that they do not split the memory the run itself needs.
@@ -443,17 +477,17 @@ def hold_kernel_calls(run, keep=LARGEST):
     return held, largest, times
 
 
-# hash_keys launches of one join or pipeline, from the code: the lane
-# build hashes twice (bucket, h2), a probe layout on its sort path
+# hash_keys launches of one join or pipeline, from the code: the build
+# kernel (lane_build) hashes inside, a probe layout on its sort path
 # (plans past LAYOUT_MAX_PARTS partitions) twice (bucket, lane of the
 # padded keys), an identity layout once, the layout kernel (configs 1,
-# 3 and 4: 512 partitions) never. Config 3: the list table's build (2),
-# both memberships (1 each), the heavy mini table (2 + 1) and the light
-# join's build (2). Config 5, per shard: owner_of twice for the
-# planner's histograms, twice for its keys-only exchange and twice for
-# the join's, then the light lane join (4: 16,384 partitions).
-HASH_LAUNCHES = {"config1": 2, "config3": 9, "merge": 0, "config4": 2,
-                 "dist": 8 * (6 + 4)}
+# 3 and 4: 512 partitions) never. Config 3: both memberships (1 each)
+# and the heavy mini table's identity layout (1). Config 5, per shard:
+# owner_of twice for the planner's histograms, twice for its keys-only
+# exchange and twice for the join's, then the light lane join's layout
+# (2: 16,384 partitions).
+HASH_LAUNCHES = {"config1": 0, "config3": 3, "merge": 0, "config4": 0,
+                 "dist": 8 * (6 + 2)}
 
 # Launches of one 8-shard join of the dist benches (the sorted local
 # join, which launches no kernel), from the code. Per shard: owner_of
@@ -716,6 +750,31 @@ def layout_phase(K, args, label, record):
                   layout_err(args, got), layout_yardsticks(args), record=record)
 
 
+def build_yardsticks(args) -> int:
+    """The bytes a lane build must move: the live rows' key and payloads
+    read once, every slot of the key, payload and occ tiles and every
+    bucket length written once, and the ok flag."""
+    r, plan, key = args
+    live = max(0, min(int(r.num_rows), r.capacity))
+    width = 8 * len(r.names)  # the key and the payloads, int64 on the tiles
+    return live * width + plan.nbuckets * (plan.depth * (width + 4) + 4) + 1
+
+
+def build_phase(K, args, label, record):
+    """The build kernel at one call against its plain version, which is
+    the sort path (the composite sort, gathers, PAD and transposes, with
+    the hash and PAD kernels), in turns."""
+    from tpq_torch.kernels.lane_table import build_lane_tables_ref, lane_build
+
+    r, plan = args[0], args[1]
+    got = lane_build(*args)
+    return K.hold("lane_build", f"{label}: {int(r.num_rows)} of {r.capacity} rows, "
+                                f"{len(r.names) - 1} payloads -> {plan.npart} x "
+                                f"{plan.depth} x 128 slots",
+                  lambda: lane_build(*args), lambda: build_lane_tables_ref(*args), 5,
+                  build_err(args, got), build_yardsticks(args), record=record)
+
+
 def hash_phase(K, args, label, record):
     """The hash at one call: byte-equal to its plain chain and, on a
     sample of 65,536 keys or fewer, to numpy's twin; bound by its 12
@@ -735,11 +794,13 @@ def hash_phase(K, args, label, record):
 
 
 def largest_call_phase(K, largest):
-    """PAD, PACK, the fused walk/emit and the hash at their largest call
-    of the planned config-5 join, where the bytes they move, not the
-    host, should set their time."""
+    """PAD, PACK, the fused walk/emit, the hash and the build at their
+    largest call of the planned config-5 join (the build's: its largest
+    shard), where the bytes they move, not the host, should set their
+    time."""
     for name, timed in (("pad", pad_phase), ("pack", pack_phase),
-                        ("fused_walk_emit", fused_phase), ("hash_keys", hash_phase)):
+                        ("fused_walk_emit", fused_phase), ("hash_keys", hash_phase),
+                        ("lane_build", build_phase)):
         K.rec[name]["config5_largest"] = timed(K, largest[name], "largest config-5 call",
                                                record=False)
         torch.cuda.empty_cache()
@@ -927,21 +988,22 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     calls = record_kernel_calls(lambda: lane2_hash_join(r1, s1, cap1))
     for _ in range(3):  # clocks and the caching allocator settle first
         lane2_hash_join(r1, s1, cap1)
-    check(set(calls) == {"pad", "pack", "fused_walk_emit", "hash_keys", "probe_layout"},
+    check(set(calls) == {"pad", "pack", "fused_walk_emit", "probe_layout", "lane_build"},
           f"config 1 reached kernels {sorted(calls)}")
-    check(len(calls["pad"]) == 2, "expected build and tail-window PAD calls")
-    check(len(calls["hash_keys"]) == HASH_LAUNCHES["config1"],
-          f"{len(calls['hash_keys'])} hash calls at config 1")
-    (h_args, h2_args), salts = calls["hash_keys"][:2], (SALT_LANE, SALT_H2)
-    check((h_args[2], h2_args[2]) == salts, "config 1's build hashed with other salts")
-    # secondary entries: config 1's 12.6 MB of keys and ids stay in L2
-    # between timed calls; config 4's padded keys (config4_phase) give the
+    check(len(calls["pad"]) == 1, "expected the tail window's PAD call alone")
+    (args,) = calls["lane_build"]
+    build_phase(K, args, "config-1 build", record=True)
+    # secondary entries: the two hashes of config 1's build keys that the
+    # build's sort path makes (12.6 MB of keys and ids, in L2 between
+    # timed calls); config 4's padded keys (config4_phase) give the
     # hash's main record
+    rk = args[0].col("key")
+    h_args, h2_args = (rk, args[1].pbits + 7, SALT_LANE), (rk, 32, SALT_H2)
     K.rec["hash_keys"] = {
         "config1_build": hash_phase(K, h_args, "config-1 build buckets", record=False),
         "config1_build_h2": hash_phase(K, h2_args, "config-1 build h2", record=False)}
-    for label, args in zip(("build", "tail window"), calls["pad"]):
-        pad_phase(K, args, label, record=label == "build")
+    (args,) = calls["pad"]
+    pad_phase(K, args, "tail window", record=True)
     (args,) = calls["probe_layout"]
     layout_phase(K, args, "config 1", record=True)
     (args,) = calls["pack"]
@@ -971,6 +1033,11 @@ def kernel_phase(dev, cfg1, cfg3, hbm_bw):
     K.rec["probe_walk"]["config1_tables"] = config1_tables
     heavy = [a for a in calls["fused_walk_emit"] if a[0].plan.npart == 1]
     check(len(heavy) == 1, "expected one heavy-path fused walk/emit")
+    mini = [a for a in calls["lane_build"] if a[1].npart == 1 and a[1].depth == 64]
+    check(len(calls["lane_build"]) == 3 and len(mini) == 1,
+          "expected the list, heavy mini and light tables' builds")
+    K.rec["lane_build"]["config3_mini"] = build_phase(K, mini[0], "config-3 heavy mini table",
+                                                      record=False)
     K.rec["fused_walk_emit"]["config3_heavy"] = fused_phase(
         K, heavy[0], "config-3 heavy mini table", record=False)
     K.rec["fused_walk_emit"]["config3_heavy"]["device_ms_by_chunk"] = chunk_sweep(
@@ -1058,7 +1125,7 @@ def wrappers():
     from tpq_torch.kernels.aggregate import aggregate_runs
     from tpq_torch.kernels.group_table import group_insert, group_write
     from tpq_torch.kernels.lane2 import fused_walk_emit
-    from tpq_torch.kernels.lane_table import probe_layout, probe_walk
+    from tpq_torch.kernels.lane_table import lane_build, probe_layout, probe_walk
     from tpq_torch.kernels.move import pack, pad
     from tpq_torch.kernels.radix_partition import radix_histogram
     from tpq_torch.kernels.radix_sort import split_digit
@@ -1067,7 +1134,8 @@ def wrappers():
             "probe_walk": probe_walk, "split1": split_digit,
             "radix_histogram": radix_histogram, "hash_keys": hash_keys,
             "aggregate_runs": aggregate_runs, "group_insert": group_insert,
-            "group_write": group_write, "probe_layout": probe_layout}
+            "group_write": group_write, "probe_layout": probe_layout,
+            "lane_build": lane_build}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -1119,8 +1187,8 @@ def config1_phase(dev, cfg, hbm_bw):
     from tpq_torch.bench.runner import gen, join_fn, out_capacity_for, phase_report
 
     launches, _, op = run_path("config1", dev, cfg,
-                               {"pad", "pack", "fused_walk_emit", "hash_keys",
-                                "probe_layout"},
+                               {"pad", "pack", "fused_walk_emit", "probe_layout",
+                                "lane_build"},
                                "join_hash_lane", hbm_bw)
     phases = phase_report(cfg, device=dev)
     phase("config1", "phases (ms): " + ", ".join(
@@ -1154,7 +1222,8 @@ def config3_phase(dev, cfg, hbm_bw):
     try:
         launches, s_np, _ = run_path(
             "config3", dev, cfg,
-            {"pad", "pack", "fused_walk_emit", "probe_walk", "hash_keys", "probe_layout"},
+            {"pad", "pack", "fused_walk_emit", "probe_walk", "hash_keys", "probe_layout",
+             "lane_build"},
             "join_hash_skew", hbm_bw)
     finally:
         skew_join._split = split
@@ -1239,7 +1308,8 @@ KERNELS_OF = {"pad": ("pad_kernel",), "pack": ("pack_kernel",),
               "aggregate_runs": ("agg_runs_kernel",),
               "group_insert": ("group_insert_kernel",), "group_write": ("group_write_kernel",),
               "probe_layout": ("layout_count_kernel", "layout_scan_kernel",
-                               "layout_scatter_kernel")}
+                               "layout_scatter_kernel"),
+              "lane_build": ("lane_build_count_kernel", "lane_build_finish_kernel")}
 
 
 def eager_port_kernels(fn, dev) -> dict:
@@ -1598,8 +1668,8 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     phase("config4", f"one pipeline (dim {cfg.r.rows}, fact {cfg.s.rows} rows of capacity "
                      f"{s.capacity}, out capacity {out_cap}): launches {launches}; peak "
                      f"memory {peak} B")
-    expect = {"pad", "pack", "fused_walk_emit", "hash_keys", "group_insert", "group_write",
-              "probe_layout"}
+    expect = {"pad", "pack", "fused_walk_emit", "group_insert", "group_write",
+              "probe_layout", "lane_build"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
     check(launches["hash_keys"] == HASH_LAUNCHES["config4"],
@@ -1634,17 +1704,16 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
     del r, s, pipe
     largest.pop("pad")
     torch.cuda.empty_cache()
-    keys = largest.pop("hash_keys")[0]
-    check(keys.numel() == cfg.r.rows, f"the largest hash call took {keys.numel()} keys, "
-                                      f"not the build's {cfg.r.rows}")
-    del keys
+    K.rec["lane_build"]["config4_dim"] = build_phase(K, largest.pop("lane_build"),
+                                                     "config-4 dimension table", record=False)
+    torch.cuda.empty_cache()
     layout_args = largest.pop("probe_layout")
     K.rec["probe_layout"]["config4"] = layout_phase(K, layout_args, "config-4 pipeline",
                                                     record=False)
     torch.cuda.empty_cache()
     # the hash's main record: the padded probe keys, which the layout's
     # sort path (plans past LAYOUT_MAX_PARTS) hashes a second time; the
-    # pipeline's own hash calls are the build's, L2-resident
+    # pipeline itself launches no hash
     from tpq_torch.kernels.lane_table import SALT_LANE, probe_layout
 
     qk = probe_layout(*layout_args)[0]
@@ -1690,7 +1759,7 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
 
 
 # Launches of the scale benches' programs, from the code: the lane build
-# hashes twice (bucket, h2) and PADs once; a chunk's probe layout is the
+# is one build kernel call; a chunk's probe layout is the
 # layout kernel at config 4's 512 partitions and the sort path at config
 # 2's 8,192 (two hashes: bucket, lane of the padded keys; one PAD); a
 # chunk walks and emits once, then PACKs and PADs the lane tail; config
@@ -1699,7 +1768,7 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
 # builds twice (the warm-up's tables, the timed build), runs
 # min(2, nchunks) warm-up chunks before its loop, and config 4 finalizes
 # once in the warm-up and once a loop.
-LANE_BUILD = {"hash_keys": 2, "pad": 1}
+LANE_BUILD = {"lane_build": 1}
 LANE_CHUNK = {"hash_keys": 2, "pad": 2, "pack": 1, "fused_walk_emit": 1}
 SCALE_LAUNCHES = {
     "config4_chunked": {"build": LANE_BUILD,
@@ -1722,7 +1791,7 @@ def scale_launches(label, nchunks, whole_run) -> dict:
     counts = {k: builds * c["build"].get(k, 0) + chunks * c["chunk"].get(k, 0)
               + fins * c["finalize"].get(k, 0)
               for k in ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs",
-                        "probe_layout")}
+                        "probe_layout", "lane_build")}
     return {k: n for k, n in counts.items() if n}
 
 
@@ -2049,7 +2118,7 @@ def config5_phase(dev, K, cfg):
     launches = {k: w.launches for k, w in ws.items()}
     phase("config5", f"one planned join, eager (ex_cap {ex_cap}, out_cap {out_cap} per "
                      f"shard): launches {launches}; peak memory {peak} B")
-    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit", "hash_keys"}
+    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit", "hash_keys", "lane_build"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
     check(launches["hash_keys"] == HASH_LAUNCHES["dist"],
@@ -2063,8 +2132,8 @@ def config5_phase(dev, K, cfg):
     del out, ovf
 
     # the same join once more, every kernel call held as it is made
-    # against its plain version on the same inputs (the build PAD of
-    # 33.5M rows, the walk/emit over u 50,331,648 queries of D 48)
+    # against its plain version on the same inputs (the builds over 2^21
+    # buckets of D 48, the walk/emit over u 50,331,648 queries)
     t0 = time.perf_counter()
     held, largest, walk_ms = hold_kernel_calls(lambda: planned(True))
     for name, (calls, err) in held.items():
@@ -2361,6 +2430,9 @@ def main():
         "group_write": ("tpq_torch/csrc/group_table.cu", "none (tpq sorts the capacity)"),
         "probe_layout": ("tpq_torch/csrc/layout.cu",
                          "none (tpq's stable sort and PAD, tpq/kernels/lane_table.py:232)"),
+        "lane_build": ("tpq_torch/csrc/lane_build.cu",
+                       "none (tpq's composite sort, gathers and PAD, "
+                       "tpq/kernels/lane_table.py:113)"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 import torch_aggregate_cases as agg_cases
+import torch_lane_build_cases as build_cases
 import torch_layout_cases as layout_cases
 import torch_move_cases as cases
 import torch_skew_cases as skew_cases
@@ -26,14 +27,16 @@ from tpq_torch.hashing import hash_keys, hash_keys_ref, np_hash_keys
 from tpq_torch.jit import deferred, jit
 from tpq_torch.kernels.aggregate import aggregate_runs, aggregate_runs_ref
 from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
-                                     fused_walk_emit_ref, lane2_probe_emit, plan_lane2)
+                                     fused_walk_emit_ref, lane2_hash_join, lane2_path_taken,
+                                     lane2_probe_emit, plan_lane2)
 from tpq_torch.kernels import _build, aggregate, group_table, lane_table, move
 from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
                                            group_write_ref)
-from tpq_torch.kernels.lane_table import (LAYOUT_MAX_PARTS, SALT_H2, SALT_LANE, LanePlan,
-                                          _probe_layout, build_lane_tables, probe_layout,
-                                          probe_layout_ref, probe_walk, probe_walk_ref,
-                                          walk_ref)
+from tpq_torch.kernels.lane_table import (LANE_BUILD_MAX_DEPTH, LAYOUT_MAX_PARTS, SALT_H2,
+                                          SALT_LANE, LanePlan, _probe_layout,
+                                          build_lane_tables, build_lane_tables_ref, lane_build,
+                                          probe_layout, probe_layout_ref, probe_walk,
+                                          probe_walk_ref, walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
 from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, radix_histogram,
                                                radix_histogram_ref)
@@ -356,6 +359,81 @@ def test_jitted_pipeline_launches_the_layout_kernel(dev):
     launched = _traced_port_kernels(dev, lambda: pipe(dim, fact, 1 << 19))
     assert {k: launched.get(k, 0) for k in LAYOUT_KERNELS} == {k: 1 for k in LAYOUT_KERNELS}
     assert len(pipe._graphs) == 1 and pipe.reruns == 0
+
+
+def _build_eq(got, want):
+    """The build kernel's contract against the sort path: `ok` and blen
+    equal; where `ok` is true every byte of key, payloads and occ, where
+    it is false every bucket of fewer than D rows."""
+    torch.cuda.synchronize()
+    _eq(got.ok, want.ok)
+    _eq(got.blen, want.blen)
+    assert len(got.pays) == len(want.pays)
+    lanes = (want.blen < want.plan.depth).unsqueeze(1).expand_as(want.occ)
+    for a, b in zip([got.key, *got.pays, got.occ], [want.key, *want.pays, want.occ]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b) if bool(want.ok) else torch.equal(a[lanes], b[lanes])
+
+
+BUILD_KERNELS = ("lane_build_count_kernel", "lane_build_finish_kernel")
+
+
+@pytest.mark.parametrize("name", build_cases.CASES)
+def test_lane_build_kernel_matches_the_sort_path(dev, name):
+    """The build kernel against its plain version (the sort path), twice,
+    directly and through build_lane_tables: the uniform 2^20 join's 512
+    partitions, the skew split's one-partition plans at D 48 and 64, a
+    16,384-partition plan over rows past num_rows, the renegotiated D 72
+    and 108, int32 keys, no payload and the most, num_rows 0, a bucket
+    at D rows, one past D (`ok` false) and the h2-colliding pair (`ok`
+    false). One launch a call."""
+    plan, cols, num_rows = build_cases.build_case(name, card=True)
+    r = Table({k: torch.from_numpy(v).to(dev) for k, v in cols.items()}, num_rows)
+    before = lane_build.launches
+    first, second = lane_build(r, plan), build_lane_tables(r, plan)
+    assert lane_build.launches == before + 2
+    want = build_lane_tables_ref(r, plan)
+    assert bool(want.ok) == (name not in ("bucket_past_d", "h2_pair"))
+    for got in (first, second):
+        _build_eq(got, want)
+
+
+def test_lane_build_takes_the_sort_path_past_its_depth(dev):
+    """A plan deeper than LANE_BUILD_MAX_DEPTH goes to the sort path with
+    no launch; lane_build refuses it."""
+    plan, cols, num_rows = build_cases.build_case("d108", card=True)
+    plan = LanePlan(pbits=plan.pbits, depth=LANE_BUILD_MAX_DEPTH + 1, probe_cap=plan.probe_cap,
+                    inline_k=plan.inline_k, tail_rows_cap=plan.tail_rows_cap,
+                    tail_out_cap=plan.tail_out_cap)
+    assert plan.depth > LANE_BUILD_MAX_DEPTH
+    r = Table({k: torch.from_numpy(v).to(dev) for k, v in cols.items()}, num_rows)
+    before = lane_build.launches
+    _build_eq(build_lane_tables(r, plan), build_lane_tables_ref(r, plan))
+    with pytest.raises(ValueError):
+        lane_build(r, plan)
+    assert lane_build.launches == before
+
+
+def test_jitted_lane_join_takes_the_build_kernel(dev):
+    """lane2_hash_join jitted: its replays give the bytes of its eager
+    call (one build launch a call), each replay launches the count and
+    the finish once and no sort of the build; one capture, no rerun."""
+    r, s = _lane_join_inputs(dev, 51)
+    join = lambda r, s: lane2_hash_join(r, s, 1 << 18)
+    assert bool(lane2_path_taken(r, s, 1 << 18))
+    before = lane_build.launches
+    want = join(r, s)
+    assert lane_build.launches == before + 1
+    jitted = jit(join)
+    n = int(want.num_rows)
+    for _ in range(3):
+        got = jitted(r, s)
+        assert int(got.num_rows) == n > 0
+        for name in want.columns:
+            _eq(got.columns[name][:n], want.columns[name][:n])
+    launched = _traced_port_kernels(dev, lambda: jitted(r, s))
+    assert {k: launched.get(k, 0) for k in BUILD_KERNELS} == {k: 1 for k in BUILD_KERNELS}
+    assert (jitted.captures, jitted.reruns) == (1, 0)
 
 
 @pytest.mark.parametrize("impl", ["lane", "sorted"])
@@ -1058,7 +1136,7 @@ def test_jitted_fallback_reruns_exact(dev):
                           "p0": np.arange(4, dtype=np.int64) * 10}, device=dev)
     jitted = jit(lambda r, s: hash_join(r, s, 1 << 8, impl="lane"))
     want = canonicalize(hash_join(r, s, 1 << 8, impl="sorted"))
-    wrappers = (pad, pack, fused_walk_emit, hash_keys)
+    wrappers = (pad, pack, fused_walk_emit, hash_keys, lane_build)
     for call in (1, 2, 3):
         if call == 2:
             launched = [w.launches for w in wrappers]
@@ -1379,15 +1457,16 @@ def test_jit_carried_state_updated_in_place_is_exact(dev):
 @pytest.mark.parametrize("site", ["build", "probe_layout", "sort_rows"])
 def test_sort_sites_under_a_graph_equal_eager(dev, site):
     """The three sorts whose device copies a graph runs as memcpy nodes
-    (the build's composite sort, the probe layout's partition sort on
-    its sort path, probe_layout_ref, which plans past LAYOUT_MAX_PARTS
-    partitions take, sort_rows under the aggregate), captured and
+    (the build's composite sort on its sort path, build_lane_tables_ref,
+    which plans past LANE_BUILD_MAX_DEPTH take, the probe layout's
+    partition sort on its sort path, probe_layout_ref, which plans past
+    LAYOUT_MAX_PARTS partitions take, sort_rows under the aggregate), captured and
     replayed on new inputs: every output byte-equal to the eager
     call's."""
     from tpq_torch.kernels.radix_sort import sort_rows
 
     plan = plan_lane2(1 << 20, 1 << 20, out_capacity=1 << 21)
-    body = {"build": lambda t: build_lane2_tables(t, plan),
+    body = {"build": lambda t: build_lane_tables_ref(t, plan),
             "probe_layout": lambda t: probe_layout_ref(plan, t, "key"),
             "sort_rows": lambda t: sort_rows(t)}[site]
     jitted = jit(body)

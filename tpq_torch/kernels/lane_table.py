@@ -6,11 +6,16 @@ The layout is tpq's, so that the same inputs give the same tables:
   * hash(key) -> (partition p = top pbits, lane l = low 7 bits). A
     partition's table is a [D, 128] tile per column: lane l's bucket is
     the column (0..D-1, l).
-  * build: one stable sort by the composite (bucket << 32) | h2, where h2
-    is a second 32-bit hash; equal keys share h2, so their runs are
-    contiguous in d. Two distinct keys that collide on (bucket, h2) clear
-    `ok` and the join falls back. Rows are ranked within their bucket and
-    PADded lane-major, then transposed to [npart, D, 128].
+  * build: a bucket's rows in the order of the stable sort by the
+    composite (bucket << 32) | h2, where h2 is a second 32-bit hash;
+    equal keys share h2, so their runs are contiguous in d. Two distinct
+    keys that collide on (bucket, h2) clear `ok` and the join falls back.
+    On the card a plan of depth at most LANE_BUILD_MAX_DEPTH takes
+    `lane_build` (tpq_torch/csrc/lane_build.cu: each live row parked in
+    its bucket by an atomic count, then each bucket sorted by (h2, row)
+    and every tile slot written once); a deeper plan and a CPU tensor
+    take `build_lane_tables_ref`, tpq's sort: rows ranked within their
+    bucket, PADded lane-major, then transposed to [npart, D, 128].
   * probe layout: queries grouped by partition and PADded to [npart,
     probe_cap]; the identity when npart == 1 and probe_cap equals the
     probe capacity (the skew join's broadcast tables). On the card a
@@ -74,6 +79,11 @@ LAYOUT_TILE = 4096  # kTile in csrc/layout.cu (the kernel checks the scratch siz
 # plan_lane2 gives 512 partitions at a build side of 2^20 rows (configs
 # 1, 3 and 4), 16,384 at config 5's shards, which keep the sort path
 LAYOUT_MAX_PARTS = 1024
+# kMaxDepth in csrc/lane_build.cu: the build kernel sorts each bucket's
+# rows in shared memory, 8 bytes a depth for each of the 128 lanes, D KB
+# a block: 227 depths fill a Hopper block's 232,448 bytes. Growing D by
+# half from 48 gives 72, 108 and 162 to the kernel, 243 to the sort path
+LANE_BUILD_MAX_DEPTH = SMEM_LIMIT // (8 * L)
 
 
 @dataclass(frozen=True)
@@ -142,8 +152,9 @@ def _rank_in_group(group: torch.Tensor) -> torch.Tensor:
     return i - last_start(new)
 
 
-@span("tpq.lane.build")
-def build_lane_tables(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
+def build_lane_tables_ref(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
+    """Plain torch build (tpq's sort): defines the contract the kernel is
+    held to, and is the sort path of plans past LANE_BUILD_MAX_DEPTH."""
     D, nb = plan.depth, plan.nbuckets
     rk = _as_i64(r.col(key))
     valid = r.valid_mask()
@@ -170,6 +181,63 @@ def build_lane_tables(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
                       occ=_tiles(occ, plan),
                       blen=occ.reshape(nb, D).sum(1, dtype=I32).reshape(plan.npart, L),
                       ok=~overflow & ~hazard)
+
+
+def lane_build(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
+    """The build as one count-and-place kernel pair on the card
+    (csrc/lane_build.cu); see build_lane_tables_ref for the contract:
+    every output byte equal wherever `ok` is true, `ok` equal always
+    (where a bucket overflows its rows are unspecified). Takes plans of
+    depth at most LANE_BUILD_MAX_DEPTH. Calls counted in `.launches` (a
+    call launches each of the two kernels once)."""
+    dev = r.col(key).device
+    if dev.type == "cpu":
+        return build_lane_tables_ref(r, plan, key)
+    if dev.type != "cuda":
+        raise RuntimeError(f"lane_build: no kernel for device {dev}")
+    if plan.depth > LANE_BUILD_MAX_DEPTH:
+        raise ValueError(f"lane_build: depth {plan.depth} past {LANE_BUILD_MAX_DEPTH} "
+                         "takes build_lane_tables_ref")
+    rk = _as_i64(r.col(key)).contiguous()
+    pays = [_as_i64(r.col(n)).contiguous() for n in r.names if n != key]
+    if len(pays) > MAX_COLS - 1:  # as the sort path, whose PAD moves the key beside them
+        raise ValueError(f"lane_build: at most {MAX_COLS - 1} payload columns")
+    if r.capacity >= 2**31:
+        raise ValueError("lane_build: int32 row ids need capacity < 2^31")
+    shape = (plan.npart, plan.depth, L)
+    t_key = torch.empty(shape, dtype=I64, device=dev)
+    t_pays = [torch.empty(shape, dtype=I64, device=dev) for _ in pays]
+    occ = torch.empty(shape, dtype=I32, device=dev)
+    blen = torch.zeros((plan.npart, L), dtype=I32, device=dev)  # the kernel's counters
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    with _build.on_device(rk):
+        code = _build.lib().tpq_lane_build(
+            rk.data_ptr(), _build.ptr_array(pays), len(pays), r.num_rows.data_ptr(),
+            r.num_rows.element_size(), r.capacity, plan.pbits, plan.depth, SALT_LANE,
+            SALT_H2, t_key.data_ptr(), _build.ptr_array(t_pays), occ.data_ptr(),
+            blen.data_ptr(), ok.data_ptr(), _build.stream_of(rk))
+    _build.check(code, "lane_build")
+    lane_build.launches += 1
+    return LaneTables(plan=plan, key=t_key, pays=t_pays, occ=occ, blen=blen, ok=ok)
+
+
+lane_build.launches = 0
+
+
+def _build_takes_kernel(plan: LanePlan, device: torch.device) -> bool:
+    """The build kernel takes CUDA tensors at a depth of at most
+    LANE_BUILD_MAX_DEPTH; the rest take the sort path."""
+    return device.type == "cuda" and plan.depth <= LANE_BUILD_MAX_DEPTH
+
+
+@span("tpq.lane.build")
+def build_lane_tables(r: Table, plan: LanePlan, key: str = "key") -> LaneTables:
+    """The lane tables of r's live rows: the kernel on the card
+    (lane_build), the sort path (build_lane_tables_ref) on a CPU tensor
+    and past LANE_BUILD_MAX_DEPTH."""
+    if _build_takes_kernel(plan, r.col(key).device):
+        return lane_build(r, plan, key)
+    return build_lane_tables_ref(r, plan, key)
 
 
 def plan_pressure(r: Table, s: Table, plan: LanePlan, key: str = "key"):
