@@ -70,7 +70,9 @@ replayed in one launch:
     branch a named cond takes (`tpq.lane.ok`, `tpq.skew.ok`,
     `tpq.union.small_ok`); `observe(name, scalar)` inside a body stacks a
     0-d device integer into the same flags copy (eagerly it reads the
-    scalar only while a profiler records). Both cost no sync of their own.
+    scalar only while a profiler records), and keeps a Python int (a
+    constant of the body's shapes) beside the graph, with no device work.
+    Both cost no sync of their own.
   * Phases and records. Every call adds its host ns, phase by phase
     (signature: the arguments flattened, the graph looked up and its
     addresses checked; load: the copy-in and the numbers filled; launch:
@@ -183,16 +185,17 @@ def cond(pred, then_fn, else_fn, name: str | None = None, attempt=None):
 
 
 def observe(name: str, value) -> None:
-    """Records a 0-d integer tensor of a body under `name`: under a
-    capture it joins the flags read after each replay (no sync of its
-    own); in an eager run of a jitted call it is read only while a
-    profiler records; elsewhere nothing is done."""
+    """Records a 0-d integer tensor or a Python int of a body under
+    `name`: under a capture a tensor joins the flags read after each
+    replay (no sync of its own) and an int is kept beside the graph; in
+    an eager run of a jitted call either is read only while a profiler
+    records; elsewhere nothing is done."""
     run = _TRACE.get()
     if run is None:
         return
-    if not run.eager:
+    if not run.eager and not isinstance(value, int):
         run.observed.append((name, value.reshape(()).to(torch.int64)))
-    elif trace.recording():
+    elif not run.eager or trace.recording():
         run.observed.append((name, int(value)))
 
 
@@ -300,8 +303,9 @@ class _Graph:
     caller's tensors, pinned, except at the positions in `owned` and for
     Python numbers, where they are buffers of its own), the captured
     graph, its outputs as captured, the flags read after each replay (the
-    recorded preds, then the observed values, then, without hand_off,
-    each output Table's num_rows, then the spans' stamps), the path it
+    recorded preds, then the observed tensors, then, without hand_off,
+    each output Table's num_rows, then the spans' stamps), the observed
+    ints (`constants`), the path it
     follows, the kernels' per-stream buffers it was captured with
     (`states`, _build.take_stream_state), and its
     top-level spans with their stamps (`marks`; `discarded`: the spans
@@ -345,18 +349,20 @@ class _Graph:
             tables = []
             if not hand_off:  # each Table's num_rows bounds its copy-out
                 _map(self.out, tables.append, lambda t: t)
+            observed = [(n, v) for n, v in run.observed if isinstance(v, torch.Tensor)]
             flags = ([p.reshape(()).to(torch.int64) for p in run.preds]
-                     + [v for _, v in run.observed]
+                     + [v for _, v in observed]
                      + [t.num_rows.reshape(()).to(torch.int64) for t in tables]
                      + self.marks.stamps)
             self.flags = torch.stack(flags) if flags else None
-        self.npreds, self.nobserved = len(run.preds), len(run.observed)
+        self.npreds, self.nobserved = len(run.preds), len(observed)
         self.nstamps = len(self.marks.stamps)
         if self.npreds and updated:
             raise ValueError("jit: a body that updates its arguments in place has "
                              f"{self.npreds} conds; a rerun would update them twice")
         self.path = tuple(path) if path is not None else (True,) * self.npreds
-        self.names, self.observed = run.names, [n for n, _ in run.observed]
+        self.names, self.observed = run.names, [n for n, _ in observed]
+        self.constants = [(n, v) for n, v in run.observed if isinstance(v, int)]
         self.discarded = frozenset(i for take, spans in zip(self.path, run.attempts)
                                    if not take and spans is not None for i in spans)
         self.states = _build.take_stream_state(device, stream.cuda_stream)
@@ -594,7 +600,7 @@ class Jitted:
         flags = graph.read()
         self.replays += 1
         npreds, nobs = graph.npreds, graph.nobserved
-        observed = list(zip(graph.observed, flags[npreds:npreds + nobs]))
+        observed = list(zip(graph.observed, flags[npreds:npreds + nobs])) + graph.constants
         self.observed.update(observed)
         if graph.follows(flags):
             conds = self._count(graph.names, flags[:npreds])

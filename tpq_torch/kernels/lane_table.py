@@ -33,6 +33,10 @@ The layout is tpq's, so that the same inputs give the same tables:
     rows. It always runs (tpq conds it on a nonzero tail,
     tpq/kernels/lane_table.py:448): with no tail rows only slots at or
     after the inline total change, which lie past num_rows.
+  * counters (jit.observe): the tail's queries and rows and the inline
+    rows of every lane join, and the constants of its plan: the tail
+    window's rows, the padded probe slots, the table slots and the
+    payload columns a side (the walk/emit's shapes).
 
 Any static-capacity violation (bucket depth > D, probe partition
 overflow, tail caps, output overflow) clears `ok`, and lane2_hash_join
@@ -53,6 +57,7 @@ import torch
 
 from tpq_torch.columnar import Table
 from tpq_torch.hashing import hash_keys
+from tpq_torch.jit import observe
 from tpq_torch.kernels import _build
 from tpq_torch.kernels.move import MAX_COLS, pack, pad
 from tpq_torch.ops._expand import expand_segments, last_start
@@ -582,10 +587,21 @@ def _probe_emit_common(fused_fn, tables: LaneTables, s: Table,
     total = total64.clamp_max(2**31 - 1).to(I32)
     total_inline = inline64.clamp_max(2**31 - 1).to(I32)
     tail_out64 = total64 - inline64
-    caps_ok = (((cnt_eff > K).sum() <= plan.tail_rows_cap)
+    tail_queries = (cnt_eff > K).sum()
+    caps_ok = ((tail_queries <= plan.tail_rows_cap)
                & (tail_out64 <= plan.tail_out_cap)
                & (total_inline <= out_capacity))
     ok = tables.ok & ~probe_ovf & caps_ok
+    # how full the tail's window runs, and the walk/emit's shapes (the
+    # benchmark's emit roofline counts its least bytes from them)
+    observe("tpq.lane.tail_queries", tail_queries)
+    observe("tpq.lane.tail_rows", tail_out64)
+    observe("tpq.lane.inline_rows", inline64)
+    observe("tpq.lane.tail_cap", plan.tail_out_cap)
+    observe("tpq.lane.probe_slots", plan.npart * plan.probe_cap)
+    observe("tpq.lane.table_slots", plan.npart * plan.depth * L)
+    observe("tpq.lane.build_payloads", len(tables.pays))
+    observe("tpq.lane.probe_payloads", len(spay_p))
 
     # the Table contract leaves rows >= num_rows unspecified: the emit
     # buffer's unwritten slots stay as they are. tpq's lax.cond(tail_out >

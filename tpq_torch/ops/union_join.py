@@ -7,7 +7,8 @@ hash_join(impl="sorted") and the lane join's fallback.
      composed into one permutation that then gathers every column.
      sort_engine="radix": tpq's LSD radix engine, one stable 1-bit split
      (the split kernel, tpq_torch/kernels/radix_sort.py) per bit of
-     side, key and invalid, carrying every column as 32-bit planes.
+     side, key and invalid, carrying every column as 32-bit planes;
+     it observes its passes, planes and rows (jit.observe).
   2. RUN STRUCTURE — equal keys form runs; R rows precede S rows within
      a run. Scans give the run-start index rs and the number m of R
      rows before each position of its run.
@@ -36,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from tpq_torch.columnar import Table
-from tpq_torch.jit import cond
+from tpq_torch.jit import cond, observe
 from tpq_torch.ops._expand import expand_segments, last_start
 from tpq_torch.trace import span
 
@@ -101,7 +102,7 @@ def _radix_union_sort(inv, k, side, vals: dict, key_bits: int):
     int64 order), invalid last; `key_bits` < 64 narrows the key passes
     when the key domain is bounded. Returns (inv_s, k_s, side_s,
     vals_s)."""
-    from tpq_torch.kernels.radix_sort import lsd_radix_sort_bits
+    from tpq_torch.kernels.radix_sort import digit_passes, lsd_radix_sort_bits
 
     k64 = k.to(I64)
     # the bias in int64, masked: torch on the CPU has no uint32 xor
@@ -109,7 +110,12 @@ def _radix_union_sort(inv, k, side, vals: dict, key_bits: int):
     val_planes = {n: col_planes(v) for n, v in vals.items()}
     planes = [inv, (k64 & M32).to(I32), khi_b, side,
               *[p for ps in val_planes.values() for p in ps]]
-    out = lsd_radix_sort_bits(planes, union_sort_specs(key_bits))
+    specs = union_sort_specs(key_bits)
+    out = lsd_radix_sort_bits(planes, specs)
+    # the sort's shape: the benchmark's split roofline counts its bytes
+    observe("tpq.radix.passes", digit_passes(len(specs)))
+    observe("tpq.radix.planes", len(planes))
+    observe("tpq.radix.rows", planes[0].shape[0])
     khi = (out[2].to(I64) & M32) ^ SIGN32
     k_s = planes_col((out[1], khi), I64).to(k.dtype)
     vals_s, pos = {}, 4
