@@ -28,7 +28,10 @@ Phases, one line each; any failure raises and exits non-zero:
                 lane build kernel the same way at config 1's build and
                 the skew split's heavy mini table (one partition, D 64),
                 and later at config 4's dimension table and config 5's
-                largest shard;
+                largest shard; after config 2, the two-level probe
+                layout at config 2's call (2^27 rows, 100M live, four
+                payloads, 8,192 partitions) against the sort path, and
+                later at config 5's largest shard;
   4. config1  — the 1M x 1M uniform join, hash_join(impl="lane"): one
                 join with every launch count zeroed just before it and
                 read just after (PAD, PACK, the fused walk/emit, the
@@ -143,15 +146,17 @@ Phases, one line each; any failure raises and exits non-zero:
                 the first timed); dist_hash_join_planned(local_impl=
                 "lane") with every launch count zeroed just before and
                 read just after (the histogram twice per shard, PAD,
-                PACK, the fused walk/emit, the lane build 8 times and the
-                hash 64 times, nothing else), overflow zero,
+                PACK, the fused walk/emit, the lane build and the
+                two-level probe layout 8 times each and the hash 48
+                times, nothing else), overflow zero,
                 num_rows equal to numpy's count, four key-range slices
                 byte-equal to the oracle; the join once more with every
-                call of those six kernels held, as it is made, byte-equal
+                call of those seven kernels held, as it is made, byte-equal
                 to its plain version on the same inputs (the sizes past
                 2^31 that no CPU test reaches); PAD, PACK, the fused
-                walk/emit, the hash and the lane build timed at their
-                largest call of that join (`config5_largest` in their records); then the
+                walk/emit, the hash, the lane build and the two-level
+                layout timed at their largest call of that join
+                (`config5_largest` in their records); then the
                 planned join with its body jitted (jitted_dist_join): the
                 body once under the capture flag with sync debug mode
                 error (no host read), the first jitted call and a replay
@@ -246,7 +251,8 @@ def with_wrappers_replaced(run, replace):
     # the module (tpq_torch.ops exports the function under its name)
     hash_aggregate = importlib.import_module("tpq_torch.ops.hash_aggregate")
     patched = [(lane_table, "pad"), (lane_table, "pack"), (skew_join, "pack"),
-               (lane_table, "probe_layout"), (lane_table, "lane_build"),
+               (lane_table, "probe_layout"), (lane_table, "probe_layout_two_level"),
+               (lane_table, "lane_build"),
                (scale_bench, "pad"), (hash_aggregate, "aggregate_runs"),
                (hash_aggregate, "group_insert"), (hash_aggregate, "group_write"),
                (filter_op, "pack"), (lane2, "fused_walk_emit"),
@@ -414,12 +420,12 @@ def build_err(args, got) -> int:
 ERRS = {"pad": pad_err, "pack": pack_err, "fused_walk_emit": fused_err,
         "radix_histogram": hist_err, "hash_keys": hash_err, "aggregate_runs": agg_err,
         "group_insert": insert_err, "group_write": write_err, "probe_layout": layout_err,
-        "lane_build": build_err}
+        "probe_layout_two_level": layout_err, "lane_build": build_err}
 
 
 # kept at their largest call
 LARGEST = ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs", "group_insert",
-           "probe_layout", "lane_build")
+           "probe_layout", "probe_layout_two_level", "lane_build")
 
 
 def call_size(name, args) -> int:
@@ -429,7 +435,7 @@ def call_size(name, args) -> int:
     the histogram's ids."""
     if name in ("hash_keys", "aggregate_runs", "group_insert"):
         return args[0].numel()
-    if name == "probe_layout":
+    if name in ("probe_layout", "probe_layout_two_level"):
         return args[0].npart * args[0].probe_cap
     if name == "lane_build":
         return args[1].nbuckets * args[1].depth
@@ -479,15 +485,14 @@ def hold_kernel_calls(run, keep=LARGEST):
 
 # hash_keys launches of one join or pipeline, from the code: the build
 # kernel (lane_build) hashes inside, a probe layout on its sort path
-# (plans past LAYOUT_MAX_PARTS partitions) twice (bucket, lane of the
-# padded keys), an identity layout once, the layout kernel (configs 1,
-# 3 and 4: 512 partitions) never. Config 3: both memberships (1 each)
-# and the heavy mini table's identity layout (1). Config 5, per shard:
-# owner_of twice for the planner's histograms, twice for its keys-only
-# exchange and twice for the join's, then the light lane join's layout
-# (2: 16,384 partitions).
-HASH_LAUNCHES = {"config1": 0, "config3": 3, "merge": 0, "config4": 0,
-                 "dist": 8 * (6 + 2)}
+# (plans past LAYOUT2_MAX_PARTS partitions) twice (bucket, lane of the
+# padded keys), an identity layout once, the layout kernels (configs 1,
+# 3 and 4: 512 partitions, one level; config 5's shards: 16,384, two)
+# never. Config 3: both memberships (1 each) and the heavy mini table's
+# identity layout (1). Config 5, per shard: owner_of twice for the
+# planner's histograms, twice for its keys-only exchange and twice for
+# the join's.
+HASH_LAUNCHES = {"config1": 0, "config3": 3, "merge": 0, "config4": 0, "dist": 8 * 6}
 
 # Launches of one 8-shard join of the dist benches (the sorted local
 # join, which launches no kernel), from the code. Per shard: owner_of
@@ -750,6 +755,49 @@ def layout_phase(K, args, label, record):
                   layout_err(args, got), layout_yardsticks(args), record=record)
 
 
+def layout2_phase(K, args, label, record):
+    """The two-level layout at one call against its plain version, the
+    sort path (tpq's stable sort and PAD, with the hash and PAD kernels),
+    in turns, back to back and on the card alone, against the bound of
+    the bytes a layout must move (layout_yardsticks)."""
+    from tpq_torch.kernels.lane_table import probe_layout_ref, probe_layout_two_level
+
+    plan, s = args[0], args[1]
+    got = probe_layout_two_level(*args)
+    err = layout_err(args, got)
+    del got
+    torch.cuda.empty_cache()
+    rec = K.hold("probe_layout_two_level",
+                 f"{label}: {s.capacity} rows, {int(s.num_rows)} live, {len(s.names) - 1} "
+                 f"payloads -> {plan.npart} x {plan.probe_cap} slots",
+                 lambda: probe_layout_two_level(*args), lambda: probe_layout_ref(*args), 3,
+                 err, layout_yardsticks(args), record=record, n_device=5)
+    rec["sort_path_device_ms"] = K.device_ms(lambda: probe_layout_ref(*args), 3)
+    phase("kernels", f"probe_layout_two_level ({label}): the sort path on the card alone "
+                     f"{rec['sort_path_device_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sweep_layout_phase(dev, K):
+    """The two-level layout at config 2's call in its benchmark cell: S of
+    2^27 rows, 100,000,000 live, four payloads, the plan of 8,192
+    partitions of 24,576 slots (the keys drawn uniform over int64: a
+    partition's load is the hash's, as over the cell's keys)."""
+    from tpq_torch import Table
+    from tpq_torch.kernels.lane2 import plan_lane2
+
+    plan = plan_lane2(10_000_000, 1 << 27, out_capacity=1 << 27)
+    check((plan.npart, plan.probe_cap) == (8192, 24_576), f"config 2's plan {plan}")
+    g = torch.Generator(device=dev).manual_seed(23)
+    cols = {name: torch.randint(-(1 << 62), 1 << 62, (1 << 27,), generator=g, device=dev)
+            for name in ("key", "p0", "p1", "p2", "p3")}
+    s = Table(cols, torch.tensor(100_000_000, dtype=torch.int32, device=dev))
+    layout2_phase(K, (plan, s, "key", None), "config 2's call", record=True)
+    del s, cols
+    torch.cuda.empty_cache()
+
+
 def build_yardsticks(args) -> int:
     """The bytes a lane build must move: the live rows' key and payloads
     read once, every slot of the key, payload and occ tiles and every
@@ -794,13 +842,13 @@ def hash_phase(K, args, label, record):
 
 
 def largest_call_phase(K, largest):
-    """PAD, PACK, the fused walk/emit, the hash and the build at their
-    largest call of the planned config-5 join (the build's: its largest
-    shard), where the bytes they move, not the host, should set their
+    """PAD, PACK, the fused walk/emit, the hash, the build and the
+    two-level layout at their largest call of the planned config-5 join
+    (the build's and the layout's: its largest shard), where the bytes they move, not the host, should set their
     time."""
     for name, timed in (("pad", pad_phase), ("pack", pack_phase),
                         ("fused_walk_emit", fused_phase), ("hash_keys", hash_phase),
-                        ("lane_build", build_phase)):
+                        ("lane_build", build_phase), ("probe_layout_two_level", layout2_phase)):
         K.rec[name]["config5_largest"] = timed(K, largest[name], "largest config-5 call",
                                                record=False)
         torch.cuda.empty_cache()
@@ -1125,7 +1173,8 @@ def wrappers():
     from tpq_torch.kernels.aggregate import aggregate_runs
     from tpq_torch.kernels.group_table import group_insert, group_write
     from tpq_torch.kernels.lane2 import fused_walk_emit
-    from tpq_torch.kernels.lane_table import lane_build, probe_layout, probe_walk
+    from tpq_torch.kernels.lane_table import (lane_build, probe_layout, probe_layout_two_level,
+                                              probe_walk)
     from tpq_torch.kernels.move import pack, pad
     from tpq_torch.kernels.radix_partition import radix_histogram
     from tpq_torch.kernels.radix_sort import split_digit
@@ -1135,7 +1184,7 @@ def wrappers():
             "radix_histogram": radix_histogram, "hash_keys": hash_keys,
             "aggregate_runs": aggregate_runs, "group_insert": group_insert,
             "group_write": group_write, "probe_layout": probe_layout,
-            "lane_build": lane_build}
+            "probe_layout_two_level": probe_layout_two_level, "lane_build": lane_build}
 
 
 def run_path(name, dev, cfg, expect, want_op, hbm_bw, oracle_algo="hash"):
@@ -1309,6 +1358,11 @@ KERNELS_OF = {"pad": ("pad_kernel",), "pack": ("pack_kernel",),
               "group_insert": ("group_insert_kernel",), "group_write": ("group_write_kernel",),
               "probe_layout": ("layout_count_kernel", "layout_scan_kernel",
                                "layout_scatter_kernel"),
+              "probe_layout_two_level": ("layout2_coarse_count_kernel",
+                                         "layout2_group_scan_kernel", "layout2_groups_kernel",
+                                         "layout2_coarse_scatter_kernel",
+                                         "layout2_fine_count_kernel", "layout2_part_scan_kernel",
+                                         "layout2_fine_scatter_kernel"),
               "lane_build": ("lane_build_count_kernel", "lane_build_finish_kernel")}
 
 
@@ -1759,17 +1813,17 @@ def config4_phase(dev, K, smoke_cfg, cfg, hbm_bw):
 
 
 # Launches of the scale benches' programs, from the code: the lane build
-# is one build kernel call; a chunk's probe layout is the
-# layout kernel at config 4's 512 partitions and the sort path at config
-# 2's 8,192 (two hashes: bucket, lane of the padded keys; one PAD); a
-# chunk walks and emits once, then PACKs and PADs the lane tail; config
+# is one build kernel call; a chunk's probe layout is the one-level
+# layout kernel at config 4's 512 partitions and the two-level one at
+# config 2's 8,192; a chunk walks and emits once, then PACKs and PADs the
+# lane tail; config
 # 4's chunk also runs its aggregate's run-end pass once and PADs the
 # groups into the accumulator, and its finalize PACKs the groups once. A bench run
 # builds twice (the warm-up's tables, the timed build), runs
 # min(2, nchunks) warm-up chunks before its loop, and config 4 finalizes
 # once in the warm-up and once a loop.
 LANE_BUILD = {"lane_build": 1}
-LANE_CHUNK = {"hash_keys": 2, "pad": 2, "pack": 1, "fused_walk_emit": 1}
+LANE_CHUNK = {"pad": 1, "pack": 1, "fused_walk_emit": 1, "probe_layout_two_level": 1}
 SCALE_LAUNCHES = {
     "config4_chunked": {"build": LANE_BUILD,
                         "chunk": {"pad": 2, "pack": 1, "fused_walk_emit": 1,
@@ -1791,7 +1845,7 @@ def scale_launches(label, nchunks, whole_run) -> dict:
     counts = {k: builds * c["build"].get(k, 0) + chunks * c["chunk"].get(k, 0)
               + fins * c["finalize"].get(k, 0)
               for k in ("pad", "pack", "fused_walk_emit", "hash_keys", "aggregate_runs",
-                        "probe_layout", "lane_build")}
+                        "probe_layout", "probe_layout_two_level", "lane_build")}
     return {k: n for k, n in counts.items() if n}
 
 
@@ -2118,7 +2172,8 @@ def config5_phase(dev, K, cfg):
     launches = {k: w.launches for k, w in ws.items()}
     phase("config5", f"one planned join, eager (ex_cap {ex_cap}, out_cap {out_cap} per "
                      f"shard): launches {launches}; peak memory {peak} B")
-    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit", "hash_keys", "lane_build"}
+    expect = {"radix_histogram", "pad", "pack", "fused_walk_emit", "hash_keys", "lane_build",
+              "probe_layout_two_level"}
     check(all((v > 0) == (k in expect) for k, v in launches.items()),
           f"expected launches of exactly {sorted(expect)}: {launches}")
     check(launches["hash_keys"] == HASH_LAUNCHES["dist"],
@@ -2405,6 +2460,7 @@ def main():
                                          PRESETS["pipeline_100m"], hbm_bw)}
     per_join["config4_chunked"] = config4_chunked_phase(dev, K)
     per_join["config2"] = config2_phase(dev)
+    sweep_layout_phase(dev, K)
     entry_phase(dev)
     fallback_phase(dev)
     phase("jit", "summary " + json.dumps(jit_phase(dev, cfg1, cfg3,
@@ -2430,6 +2486,9 @@ def main():
         "group_write": ("tpq_torch/csrc/group_table.cu", "none (tpq sorts the capacity)"),
         "probe_layout": ("tpq_torch/csrc/layout.cu",
                          "none (tpq's stable sort and PAD, tpq/kernels/lane_table.py:232)"),
+        "probe_layout_two_level": ("tpq_torch/csrc/layout.cu",
+                                   "none (tpq's stable sort and PAD, "
+                                   "tpq/kernels/lane_table.py:232)"),
         "lane_build": ("tpq_torch/csrc/lane_build.cu",
                        "none (tpq's composite sort, gathers and PAD, "
                        "tpq/kernels/lane_table.py:113)"),

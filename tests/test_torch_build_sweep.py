@@ -138,9 +138,12 @@ def dev():
 def test_replayed_graph_observes_the_same_counters(dev):
     """The lane join's tensor counters come back in the flags of every
     replay and its plan's constants beside the graph, equal to a CPU
-    call's on the same relations."""
+    call's on the same relations but for the layout's path: the
+    one-level kernel on the card, the sort path on the CPU."""
     body = functools.partial(hash_join, out_capacity=1 << 15, impl="lane")
     _, want = _observed(jit(body), *_tables(10_000, 2000, 2000, 4)[1])
+    assert want["tpq.lane.layout_passes"] == 0
+    want["tpq.lane.layout_passes"] = 1
     _, (r, s) = _tables(10_000, 2000, 2000, 4, dev)
     fn = jit(body)
     fn(r, s)

@@ -7,6 +7,7 @@ no conftest fixture; run it there from the repo root with
 
 Integer data: every comparison is exact."""
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -32,10 +33,11 @@ from tpq_torch.kernels.lane2 import (build_lane2_tables, fused_walk_emit,
 from tpq_torch.kernels import _build, aggregate, group_table, lane_table, move
 from tpq_torch.kernels.group_table import (group_insert, group_insert_ref, group_write,
                                            group_write_ref)
-from tpq_torch.kernels.lane_table import (LANE_BUILD_MAX_DEPTH, LAYOUT_MAX_PARTS, SALT_H2,
-                                          SALT_LANE, LanePlan, _probe_layout,
-                                          build_lane_tables, build_lane_tables_ref, lane_build,
-                                          probe_layout, probe_layout_ref, probe_walk,
+from tpq_torch.kernels.lane_table import (LANE_BUILD_MAX_DEPTH, LAYOUT2_MAX_PARTS,
+                                          LAYOUT_MAX_PARTS, SALT_H2, SALT_LANE, LanePlan,
+                                          _probe_layout, build_lane_tables,
+                                          build_lane_tables_ref, lane_build, probe_layout,
+                                          probe_layout_ref, probe_layout_two_level, probe_walk,
                                           probe_walk_ref, walk_ref)
 from tpq_torch.kernels.move import pack, pack_ref, pad, pad_ref
 from tpq_torch.kernels.radix_partition import (MAX_BUCKETS, radix_histogram,
@@ -248,8 +250,10 @@ def test_fused_walk_emit_contract_cases(dev, case):
 
 
 # rows of each partition count's layout cases on the card: many 4,096-row
-# tiles and a ragged last one
-LAYOUT_ROWS = {2: 3 * 4096 + 1234, 8: 50_001, 512: (1 << 20) + 4097}
+# tiles and a ragged last one; past 1,024 partitions many in each group of
+# the two-level layout (32, 64 and 128 groups)
+LAYOUT_ROWS = {2: 3 * 4096 + 1234, 8: 50_001, 512: (1 << 20) + 4097,
+               2048: (1 << 21) + 4097, 8192: (1 << 22) + 777, 16384: (1 << 22) + 4097}
 
 
 def _layout_inputs(dev, case, npart, rows=None):
@@ -288,25 +292,72 @@ def test_probe_layout_kernel_matches_plain(dev, case, npart):
         _layout_eq(got, want)
 
 
+@pytest.mark.parametrize("npart", [2048, 8192, 16384])
+@pytest.mark.parametrize("case", layout_cases.CASES)
+def test_probe_layout_two_level_matches_plain(dev, case, npart):
+    """The two-level layout against the plain version (the sort path),
+    byte for byte over all u slots and the overflow flag, the cases of
+    test_probe_layout_kernel_matches_plain over 32, 64 and 128 groups of
+    many tiles each. One launch a call; a second call writes the same
+    bytes; the entry point takes it, and not the one-level kernel."""
+    plan, s, keep = _layout_inputs(dev, case, npart)
+    before, one_level = probe_layout_two_level.launches, probe_layout.launches
+    first = probe_layout_two_level(plan, s, "key", keep)
+    second = probe_layout_two_level(plan, s, "key", keep)
+    third = _probe_layout(plan, s, "key", keep)
+    assert probe_layout_two_level.launches == before + 3
+    assert probe_layout.launches == one_level
+    want = probe_layout_ref(plan, s, "key", keep)
+    assert bool(want[4]) == (case == "overflow")
+    for got in (first, second, third):
+        _layout_eq(got, want)
+
+
+def test_probe_layout_two_level_at_the_sweep_plan(dev):
+    """Config 2's plan (8,192 partitions of 24,576 slots, four payloads)
+    over 2^24 rows, 12,500,001 live: equal to the plain version over all
+    201,326,592 slots, one launch."""
+    plan = plan_lane2(10_000_000, 1 << 27, out_capacity=1 << 27)
+    assert (plan.npart, plan.probe_cap) == (8192, 24_576)
+    n = 1 << 24
+    rng = np.random.default_rng(23)
+    cols = {"key": rng.integers(-(1 << 62), 1 << 62, n),
+            **{f"p{i}": rng.integers(-(1 << 62), 1 << 62, n) for i in range(4)}}
+    s = Table({k: torch.from_numpy(v).to(dev) for k, v in cols.items()}, 12_500_001)
+    before = probe_layout_two_level.launches
+    got = _probe_layout(plan, s, "key")
+    assert probe_layout_two_level.launches == before + 1
+    _layout_eq(got, probe_layout_ref(plan, s, "key"))
+
+
 @pytest.mark.parametrize("shape", ["past_the_limit", "identity"])
 def test_probe_layout_takes_the_sort_path_by_shape(dev, shape):
-    """A plan past LAYOUT_MAX_PARTS partitions (the sort path) and the
-    identity layout (one partition as wide as the table) go to
-    probe_layout_ref with no launch of the layout kernel, which refuses
-    both."""
+    """Past LAYOUT_MAX_PARTS partitions a plan (2,048) takes the two-level
+    layout, and past LAYOUT2_MAX_PARTS (2^21) the sort path; the identity
+    layout (one partition as wide as the table) takes the sort path. A
+    kernel wrapper refuses the plans of another path, launching
+    nothing."""
     if shape == "past_the_limit":
         plan, s, keep = _layout_inputs(dev, "keep_half", 2 * LAYOUT_MAX_PARTS, 300_001)
+        before = probe_layout_two_level.launches, probe_layout.launches
+        _layout_eq(_probe_layout(plan, s, "key", keep), probe_layout_ref(plan, s, "key", keep))
+        assert (probe_layout_two_level.launches, probe_layout.launches) == (
+            before[0] + 1, before[1])
+        with pytest.raises(ValueError):
+            probe_layout(plan, s, "key", keep)
+        plan = dataclasses.replace(plan, pbits=(2 * LAYOUT2_MAX_PARTS).bit_length() - 1,
+                                   probe_cap=1)
     else:
         _, s, keep = _layout_inputs(dev, "keep_half", 8, 1 << 16)
         plan = LanePlan(pbits=0, depth=48, probe_cap=s.capacity, inline_k=4,
                         tail_rows_cap=2048, tail_out_cap=4096)
-    before = probe_layout.launches
+    before = probe_layout_two_level.launches, probe_layout.launches
     got = _probe_layout(plan, s, "key", keep)
-    assert probe_layout.launches == before
     _layout_eq(got, probe_layout_ref(plan, s, "key", keep))
-    with pytest.raises(ValueError):
-        probe_layout(plan, s, "key", keep)
-    assert probe_layout.launches == before
+    for wrapper in (probe_layout, probe_layout_two_level):
+        with pytest.raises(ValueError):
+            wrapper(plan, s, "key", keep)
+    assert (probe_layout_two_level.launches, probe_layout.launches) == before
 
 
 LAYOUT_KERNELS = ("layout_count_kernel", "layout_scan_kernel", "layout_scatter_kernel")
@@ -337,6 +388,22 @@ def test_probe_layout_launches_each_kernel_once(dev):
     probe_layout(plan, s, "key", keep)
     assert _traced_port_kernels(dev, lambda: probe_layout(plan, s, "key", keep)) == {
         k: 1 for k in LAYOUT_KERNELS}
+
+
+LAYOUT2_KERNELS = ("layout2_coarse_count_kernel", "layout2_group_scan_kernel",
+                   "layout2_groups_kernel", "layout2_coarse_scatter_kernel",
+                   "layout2_fine_count_kernel", "layout2_part_scan_kernel",
+                   "layout2_fine_scatter_kernel")
+
+
+def test_probe_layout_two_level_launches_each_kernel_once(dev):
+    """A call at config 5's shards' 16,384 partitions launches each of its
+    seven kernels once and no other kernel of the port."""
+    plan, s, keep = _layout_inputs(dev, "keep_half", 16384)
+    probe_layout_two_level(plan, s, "key", keep)
+    assert _traced_port_kernels(
+        dev, lambda: probe_layout_two_level(plan, s, "key", keep)) == {
+            k: 1 for k in LAYOUT2_KERNELS}
 
 
 def test_jitted_pipeline_launches_the_layout_kernel(dev):
@@ -1460,7 +1527,7 @@ def test_sort_sites_under_a_graph_equal_eager(dev, site):
     (the build's composite sort on its sort path, build_lane_tables_ref,
     which plans past LANE_BUILD_MAX_DEPTH take, the probe layout's
     partition sort on its sort path, probe_layout_ref, which plans past
-    LAYOUT_MAX_PARTS partitions take, sort_rows under the aggregate), captured and
+    LAYOUT2_MAX_PARTS partitions take, sort_rows under the aggregate), captured and
     replayed on new inputs: every output byte-equal to the eager
     call's."""
     from tpq_torch.kernels.radix_sort import sort_rows

@@ -49,7 +49,11 @@ PORT_KERNELS = ("pad_kernel", "pack_kernel", "walk_emit_kernel", "probe_walk_ker
                 "digit_count_kernel", "digit_scan_kernel", "digit_scatter_kernel",
                 "hist_shared_bins", "hash_keys_kernel", "agg_runs_kernel", "group_insert_kernel",
                 "group_write_kernel", "layout_count_kernel", "layout_scan_kernel",
-                "layout_scatter_kernel", "lane_build_count_kernel", "lane_build_finish_kernel")
+                "layout_scatter_kernel", "layout2_coarse_count_kernel",
+                "layout2_group_scan_kernel", "layout2_groups_kernel",
+                "layout2_coarse_scatter_kernel", "layout2_fine_count_kernel",
+                "layout2_part_scan_kernel", "layout2_fine_scatter_kernel",
+                "lane_build_count_kernel", "lane_build_finish_kernel")
 
 
 def device_activities(prof) -> list[tuple[float, float, str]]:

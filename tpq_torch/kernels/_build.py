@@ -45,6 +45,9 @@ _SIGNATURES = {
     "tpq_hash_keys": [P, I64, I32, U32, P, P],
     "tpq_probe_layout": [P, P, I32, P, P, I32, I64, I32, I64, U32, P, P, P, P, P, P, I64,
                          P],
+    "tpq_probe_layout2": [P, P, I32, P, P, I32, I64, I32, I64, U32, P, P, P, P, P, P, I64, P,
+                          I64, P],
+    "tpq_probe_layout2_scratch": [I64, I32],
     "tpq_lane_build": [P, P, I32, P, I32, I64, I32, I32, U32, U32, P, P, P, P, P, P],
     "tpq_copy": [P, P, I64, P],
     "tpq_stamp": [P, P],

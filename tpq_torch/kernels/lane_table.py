@@ -21,9 +21,12 @@ The layout is tpq's, so that the same inputs give the same tables:
     probe capacity (the skew join's broadcast tables). On the card a
     plan of at most LAYOUT_MAX_PARTS partitions takes `probe_layout`
     (tpq_torch/csrc/layout.cu: a stable count, scan and scatter, the
-    scan also filling the dead slots); a larger one (config 5's
-    shards), the identity and a CPU tensor take `probe_layout_ref`,
-    tpq's stable sort and PAD.
+    scan also filling the dead slots), one of up to LAYOUT2_MAX_PARTS
+    (config 2's, config 5's shards') `probe_layout_two_level` (the same
+    file: a stable partition by the high half of the partition bits,
+    then one by the low half into the padded slots); a larger one, the
+    identity and a CPU tensor take `probe_layout_ref`, tpq's stable
+    sort and PAD. Each layout observes its path (layout_passes).
   * walk only (probe_lane_tables, the membership probe of the skew
     join): count, first match depth and the first K matches' build
     payloads of every padded query, by `probe_walk`
@@ -82,8 +85,11 @@ LAYOUT_TILE = 4096  # kTile in csrc/layout.cu (the kernel checks the scratch siz
 # kMaxParts in csrc/layout.cu: the layout kernel's per-tile bins take 24
 # bytes a partition of a block's shared memory beside its 32 KB stage;
 # plan_lane2 gives 512 partitions at a build side of 2^20 rows (configs
-# 1, 3 and 4), 16,384 at config 5's shards, which keep the sort path
+# 1, 3 and 4). Past it the two-level layout bins each of its passes by
+# half of the partition bits: 8,192 partitions at config 2, 16,384 at
+# config 5's shards. kMaxParts2 there: ten bits a pass at most
 LAYOUT_MAX_PARTS = 1024
+LAYOUT2_MAX_PARTS = 1 << 20
 # kMaxDepth in csrc/lane_build.cu: the build kernel sorts each bucket's
 # rows in shared memory, 8 bytes a depth for each of the 128 lanes, D KB
 # a block: 227 depths fill a Hopper block's 232,448 bytes. Growing D by
@@ -260,8 +266,8 @@ def plan_pressure(r: Table, s: Table, plan: LanePlan, key: str = "key"):
 
 
 def probe_layout_ref(plan: LanePlan, s: Table, key: str, keep=None):
-    """Plain torch probe layout: defines the contract the kernel is held
-    to, and is the sort path of plans past LAYOUT_MAX_PARTS. Groups the
+    """Plain torch probe layout: defines the contract the kernels are
+    held to, and is the sort path of plans past LAYOUT2_MAX_PARTS. Groups the
     queries by partition (one stable sort) and PADs them to the
     [npart * probe_cap] layout. `keep` (bool[capacity], optional) is a
     pushed-down filter: dropped rows go to the dead partition like
@@ -298,76 +304,134 @@ def probe_layout_ref(plan: LanePlan, s: Table, key: str, keep=None):
     return qk_p, padded[1:], lane_p, qocc, overflow
 
 
+def layout_passes(plan: LanePlan, capacity: int, device) -> int:
+    """The probe layout's path for a plan over `capacity` rows on `device`,
+    by shape alone: 1, the one-level kernel (probe_layout), up to
+    LAYOUT_MAX_PARTS partitions; 2, the two-level kernels
+    (probe_layout_two_level), up to LAYOUT2_MAX_PARTS; 0, the sort path
+    (probe_layout_ref), past that, for the identity layout (one
+    partition as wide as the table) and off the card."""
+    if torch.device(device).type != "cuda" or (plan.npart == 1
+                                               and plan.probe_cap == capacity):
+        return 0
+    if plan.npart <= LAYOUT_MAX_PARTS:
+        return 1
+    return 2 if plan.npart <= LAYOUT2_MAX_PARTS else 0
+
+
+def _layout_operands(what: str, plan: LanePlan, s: Table, key: str, keep):
+    """The layout kernels' checked operands: the key and the payloads as
+    contiguous int64 (the key 16-byte aligned), keep contiguous, and the
+    outputs (qk_p, spay_p, lane_p, qocc, overflow) made empty."""
+    dev = s.col(key).device
+    u = plan.npart * plan.probe_cap
+    sk = _as_i64(s.col(key)).contiguous()
+    spays = [_as_i64(s.col(n)).contiguous() for n in s.names if n != key]
+    if len(spays) > MAX_COLS:
+        raise ValueError(f"{what}: at most {MAX_COLS} payload columns")
+    if u >= 2**31 or s.capacity >= 2**31:
+        raise ValueError(f"{what}: int32 slots and rows need u, capacity < 2^31")
+    if sk.data_ptr() % 16:  # the one-level count reads the keys in 16-byte loads
+        sk = sk.clone()
+    if keep is not None:
+        if keep.dtype != torch.bool or tuple(keep.shape) != (s.capacity,) \
+                or keep.device != dev:
+            raise ValueError(f"{what}: keep must be bool[{s.capacity}] on {dev}")
+        keep = keep.contiguous()
+    outs = (torch.empty(u, dtype=I64, device=dev),
+            [torch.empty(u, dtype=I64, device=dev) for _ in spays],
+            torch.empty(u, dtype=I32, device=dev), torch.empty(u, dtype=I32, device=dev),
+            torch.empty((), dtype=torch.bool, device=dev))
+    return sk, spays, keep, outs
+
+
 def probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
     """The probe layout as one stable partition on the card
     (csrc/layout.cu: count, scan with the dead slots' fill, scatter); see
     probe_layout_ref for the contract, byte for byte over all u slots.
-    Takes plans of at most LAYOUT_MAX_PARTS partitions and no identity
-    layout. Calls counted in `.launches` (a call launches each of the
-    three kernels once)."""
+    Takes the plans layout_passes gives 1: at most LAYOUT_MAX_PARTS
+    partitions, no identity layout. Calls counted in `.launches` (a call
+    launches each of the three kernels once)."""
     dev = s.col(key).device
     if dev.type == "cpu":
         return probe_layout_ref(plan, s, key, keep)
     if dev.type != "cuda":
         raise RuntimeError(f"probe_layout: no kernel for device {dev}")
-    npart, probe_cap = plan.npart, plan.probe_cap
-    u = npart * probe_cap
-    if _sort_path_shape(plan, s):
-        raise ValueError(f"probe_layout: {npart} partitions of {probe_cap} over "
-                         f"{s.capacity} rows take probe_layout_ref")
-    sk = _as_i64(s.col(key)).contiguous()
-    spays = [_as_i64(s.col(n)).contiguous() for n in s.names if n != key]
-    if len(spays) > MAX_COLS:
-        raise ValueError(f"probe_layout: at most {MAX_COLS} payload columns")
-    if u >= 2**31 or s.capacity >= 2**31:
-        raise ValueError("probe_layout: int32 slots and rows need u, capacity < 2^31")
-    if sk.data_ptr() % 16:  # the count reads the keys in 16-byte loads
-        sk = sk.clone()
-    if keep is not None:
-        if keep.dtype != torch.bool or tuple(keep.shape) != (s.capacity,) \
-                or keep.device != dev:
-            raise ValueError(f"probe_layout: keep must be bool[{s.capacity}] on {dev}")
-        keep = keep.contiguous()
-    num_rows = s.num_rows
-    qk_p = torch.empty(u, dtype=I64, device=dev)
-    spay_p = [torch.empty(u, dtype=I64, device=dev) for _ in spays]
-    lane_p = torch.empty(u, dtype=I32, device=dev)
-    qocc = torch.empty(u, dtype=I32, device=dev)
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    if layout_passes(plan, s.capacity, dev) != 1:
+        raise ValueError(f"probe_layout: {plan.npart} partitions of {plan.probe_cap} "
+                         f"over {s.capacity} rows take another layout")
+    sk, spays, keep, outs = _layout_operands("probe_layout", plan, s, key, keep)
+    qk_p, spay_p, lane_p, qocc, overflow = outs
     ntiles = max(1, -(-s.capacity // LAYOUT_TILE))
-    scratch = torch.empty((ntiles + 1) * npart, dtype=I32, device=dev)
+    scratch = torch.empty((ntiles + 1) * plan.npart, dtype=I32, device=dev)
     with _build.on_device(sk):
         code = _build.lib().tpq_probe_layout(
             sk.data_ptr(), _build.ptr_array(spays), len(spays),
-            keep.data_ptr() if keep is not None else None, num_rows.data_ptr(),
-            num_rows.element_size(), s.capacity, plan.pbits, probe_cap, SALT_LANE,
+            keep.data_ptr() if keep is not None else None, s.num_rows.data_ptr(),
+            s.num_rows.element_size(), s.capacity, plan.pbits, plan.probe_cap, SALT_LANE,
             qk_p.data_ptr(), _build.ptr_array(spay_p), lane_p.data_ptr(),
             qocc.data_ptr(), overflow.data_ptr(), scratch.data_ptr(), scratch.numel(),
             _build.stream_of(sk))
     _build.check(code, "probe_layout")
     probe_layout.launches += 1
-    return qk_p, spay_p, lane_p, qocc, overflow
+    return outs
 
 
 probe_layout.launches = 0
 
 
-def _sort_path_shape(plan: LanePlan, s: Table) -> bool:
-    """The shapes the layout kernel does not take: the identity layout
-    and plans past LAYOUT_MAX_PARTS partitions."""
-    return (plan.npart > LAYOUT_MAX_PARTS
-            or (plan.npart == 1 and plan.probe_cap == s.capacity))
+def probe_layout_two_level(plan: LanePlan, s: Table, key: str, keep=None):
+    """The probe layout as two stable partitions on the card
+    (csrc/layout.cu): the live rows by the high half of the partition
+    bits into a compact intermediate, then each of those runs by the low
+    half into its padded slots, the dead slots filled by the second
+    pass's scan; see probe_layout_ref for the contract, byte for byte
+    over all u slots. Takes the plans layout_passes gives 2: more than
+    LAYOUT_MAX_PARTS partitions, at most LAYOUT2_MAX_PARTS. Holds an
+    intermediate of the key and the payloads over the capacity meanwhile.
+    Calls counted in `.launches` (a call launches its seven kernels once
+    each)."""
+    dev = s.col(key).device
+    if dev.type == "cpu":
+        return probe_layout_ref(plan, s, key, keep)
+    if dev.type != "cuda":
+        raise RuntimeError(f"probe_layout_two_level: no kernel for device {dev}")
+    if layout_passes(plan, s.capacity, dev) != 2:
+        raise ValueError(f"probe_layout_two_level: {plan.npart} partitions of "
+                         f"{plan.probe_cap} over {s.capacity} rows take another layout")
+    sk, spays, keep, outs = _layout_operands("probe_layout_two_level", plan, s, key, keep)
+    qk_p, spay_p, lane_p, qocc, overflow = outs
+    mid = torch.empty((1 + len(spays)) * s.capacity, dtype=I64, device=dev)
+    with _build.on_device(sk):
+        lib = _build.lib()
+        scratch = torch.empty(lib.tpq_probe_layout2_scratch(s.capacity, plan.pbits),
+                              dtype=I32, device=dev)
+        code = lib.tpq_probe_layout2(
+            sk.data_ptr(), _build.ptr_array(spays), len(spays),
+            keep.data_ptr() if keep is not None else None, s.num_rows.data_ptr(),
+            s.num_rows.element_size(), s.capacity, plan.pbits, plan.probe_cap, SALT_LANE,
+            qk_p.data_ptr(), _build.ptr_array(spay_p), lane_p.data_ptr(),
+            qocc.data_ptr(), overflow.data_ptr(), mid.data_ptr(), mid.numel(),
+            scratch.data_ptr(), scratch.numel(), _build.stream_of(sk))
+    _build.check(code, "probe_layout_two_level")
+    probe_layout_two_level.launches += 1
+    return outs
+
+
+probe_layout_two_level.launches = 0
 
 
 @span("tpq.lane.layout")
 def _probe_layout(plan: LanePlan, s: Table, key: str, keep=None):
-    """The probe layout of the lane joins: the kernel on the card
-    (probe_layout), by shape the plain sort path (probe_layout_ref):
-    on a CPU tensor, for the identity layout, and for plans past
-    LAYOUT_MAX_PARTS partitions. Returns probe_layout_ref's tuple."""
-    if s.col(key).device.type == "cuda" and not _sort_path_shape(plan, s):
-        return probe_layout(plan, s, key, keep)
-    return probe_layout_ref(plan, s, key, keep)
+    """The probe layout of the lane joins, by layout_passes: the one-level
+    kernel (probe_layout), the two-level kernels (probe_layout_two_level)
+    or the plain sort path (probe_layout_ref). Observes the path taken as
+    `tpq.lane.layout_passes` (a constant beside the graph: 0 the sort
+    path, 1 or 2 the kernels' passes). Returns probe_layout_ref's
+    tuple."""
+    passes = layout_passes(plan, s.capacity, s.col(key).device)
+    observe("tpq.lane.layout_passes", passes)
+    return (probe_layout_ref, probe_layout, probe_layout_two_level)[passes](plan, s, key, keep)
 
 
 # ---------------------------------------------------------------------------
